@@ -1,0 +1,502 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card (nvidia-smi name and power limit) and builds both CUDA
+   kernels from ``src/repro_torch/kernels/csrc`` with nvcc, in parallel.
+2. Kernel check: each kernel against its plain PyTorch version on the card,
+   in bf16, at the main path's shapes (paged decode at B in {1, 8} with
+   ragged lengths 1..2048 and a trash-page row; flash prefill at S in {128,
+   512, 2048} with per-row kv_lens), each max abs error beside its
+   tolerance. Then CUDA-event timings: kernel, plain version, the least time
+   the card could take (bound) and one PyTorch library call computing the
+   same function (which the port never calls).
+3. Main path: full-width qwen2.5-7b (28 layers, bf16, seeded random
+   weights) served by the port's PoolRuntime in CoLocatedServer's
+   configuration (ooco, 1 strict + 1 relaxed engine, decode bucket 8, whole-
+   prompt prefill, one decode step per dispatch) on a few online and offline
+   requests. Every request must finish, both kernels must have launched, and
+   one prompt's logits through the kernels must agree with the plain path.
+4. Prints the kernel table as one JSON line, the card line again, and last
+   ``{"ok": true, "device": {...}}``.
+
+Any failure exits non-zero before the last line. Without a CUDA device the
+script exits 1 at once. It imports nothing of JAX and nothing of ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_BF16_FLOPS = 989e12   # H100 SXM data sheet, dense bf16
+PEAK_HBM_BYTES = 3.35e12   # H100 SXM data sheet
+# Kernel vs plain version: |out - ref| <= ATOL + RTOL * |ref|. Both sides
+# compute in f32 from the same bf16 inputs and round the output to bf16, so
+# they may differ by one bf16 ulp (2^-7 of |ref| at most); ATOL covers the
+# summation order and, in flash prefill, P rounded to bf16 before P @ V
+# (2^-9 relative on weights that sum to 1, over |V| of a few units).
+ATOL, RTOL = 1e-2, 2.0 ** -7
+LOGITS_REL_TOL = 5e-2  # kernels vs plain versions through 28 bf16 layers
+DEVICE = "cuda"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def compare(name: str, out, want) -> float:
+    """Max abs error of a kernel's output against its plain version; fails
+    past ATOL + RTOL * |ref|."""
+    diff = (out.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= ATOL + RTOL * want.float().abs()).all())
+    print(f"{name}: max_abs_err={err:.3e} (tol {ATOL} + {RTOL:.4f} |ref|) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def count_syncs(fn) -> list[str]:
+    """Where ``fn`` synchronizes host and device (file:line of each call),
+    from PyTorch's sync debug mode: one "called a synchronizing CUDA
+    operation" warning per synchronizing call (its first use also warns
+    once that the mode is a prototype, which is not a sync)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, iters: int, flush) -> float:
+    """Mean ms of ``fn`` on the card, CUDA events around each call, with the
+    L2 cache flushed (a 64 MB write) before each, as the main path finds it
+    cold: between two attention calls the engine streams a layer's weights."""
+    import torch
+    for _ in range(2):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# kernel checks
+# ---------------------------------------------------------------------------
+
+def paged_case(B, lengths, *, Hq=28, Hkv=4, hd=128, page=16, trash_row=None,
+               seed=0):
+    """A paged pool and tables for ``lengths``: each row's pages are drawn
+    without replacement from pages >= 1, and table entries past the length
+    are garbage page ids. ``trash_row`` mimics a padded batch row: table row
+    all zeros (the trash page) and length 1."""
+    import torch
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    P = -(-max(lengths) // page)
+    num_pages = B * P + 1
+    q = torch.randn(B, Hq, hd, generator=g, device=DEVICE).bfloat16()
+    kp = torch.randn(num_pages, page, Hkv, hd, generator=g, device=DEVICE).bfloat16()
+    vp = torch.randn(num_pages, page, Hkv, hd, generator=g, device=DEVICE).bfloat16()
+    perm = torch.randperm(num_pages - 1, generator=g, device=DEVICE) + 1
+    tables = perm[: B * P].reshape(B, P).int()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    if trash_row is not None:
+        tables[trash_row] = 0
+        lens[trash_row] = 1
+    return q, kp, vp, tables.contiguous(), lens
+
+
+def check_paged(ops, ref, softcap_cases=(0.0, 50.0)) -> float:
+    worst = 0.0
+    cases = [(1, [2048], None), (8, [1, 17, 100, 512, 1000, 2048, 5, 777], 6)]
+    for B, lengths, trash in cases:
+        q, kp, vp, tables, lens = paged_case(B, lengths, trash_row=trash)
+        for cap in softcap_cases:
+            out = ops.paged_attention(q, kp, vp, tables, lens, num_kv_heads=4,
+                                      logit_softcap=cap)
+            want = ref.paged_attention_ref(q.reshape(B, 4, 7, 128), kp, vp, tables,
+                                           lens, logit_softcap=cap).reshape(q.shape)
+            err = compare(f"paged decode B={B} lengths={lengths} softcap={cap}",
+                          out, want)
+            worst = max(worst, err)
+    return worst
+
+
+def flash_case(B, Sq, Skv, *, Hq=28, Hkv=4, hd=128, seed=1):
+    import torch
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    q = torch.randn(B, Sq, Hq, hd, generator=g, device=DEVICE).bfloat16()
+    k = torch.randn(B, Skv, Hkv, hd, generator=g, device=DEVICE).bfloat16()
+    v = torch.randn(B, Skv, Hkv, hd, generator=g, device=DEVICE).bfloat16()
+    return q, k, v
+
+
+def check_flash(ops, ref) -> float:
+    import torch
+    worst = 0.0
+    # (B, Sq, Skv, q_offset, kv_lens): whole prompts with ragged rows, and
+    # one chunk at q_offset > 0 over a longer key range
+    cases = [(2, S, S, 0, [S, S // 2 + 3]) for S in (128, 512, 2048)]
+    cases.append((1, 128, 512, 384, [512]))
+    for B, Sq, Skv, off, kv in cases:
+        q, k, v = flash_case(B, Sq, Skv)
+        lens = torch.tensor(kv, dtype=torch.int32, device=DEVICE)
+        out = ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off)
+        want = ref.flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), kv_len=Skv, q_offset=off,
+                                     kv_lens=lens).transpose(1, 2)
+        err = compare(f"flash prefill B={B} Sq={Sq} Skv={Skv} q_offset={off} "
+                      f"kv_lens={kv}", out, want)
+        worst = max(worst, err)
+    return worst
+
+
+def time_paged(ops, ref, flush, B=8, ctx=512) -> dict:
+    """The runtime's decode shape: bucket 8, context 512, qwen2.5-7b heads."""
+    import torch
+    import torch.nn.functional as F
+    q, kp, vp, tables, lens = paged_case(B, [ctx] * B)
+    Hq, hd, Hkv = 28, 128, 4
+    t_kernel = time_ms(lambda: ops.paged_attention(q, kp, vp, tables, lens,
+                                                   num_kv_heads=Hkv), 200, flush)
+    t_plain = time_ms(lambda: ref.paged_attention_ref(
+        q.reshape(B, Hkv, Hq // Hkv, hd), kp, vp, tables, lens), 20, flush)
+    # library yardstick: SDPA over a pre-gathered contiguous cache (the
+    # gather is excluded from its time)
+    kc = kp[tables.long()].reshape(B, -1, Hkv, hd)[:, :ctx].transpose(1, 2).contiguous()
+    vc = vp[tables.long()].reshape(B, -1, Hkv, hd)[:, :ctx].transpose(1, 2).contiguous()
+    qs = q[:, :, None]
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(qs, kc, vc, enable_gqa=True),
+                    200, flush)
+    lengths = lens.long()
+    nbytes = (2 * int(lengths.sum()) * Hkv * hd * 2      # K and V rows read once
+              + 2 * B * Hq * hd * 2                      # q in, out
+              + tables.numel() * 4 + B * 4)
+    flops = 4 * int(lengths.sum()) * Hq * hd             # QK^T and PV
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"paged decode B={B} ctx={ctx}: kernel {t_kernel:.4f} ms, plain "
+          f"{t_plain:.4f} ms, SDPA on a pre-gathered cache {t_lib:.4f} ms "
+          f"(gather excluded), bound {b_ms:.4f} ms ({b_by}); grid {B}x{Hkv} = "
+          f"{B * Hkv} blocks on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": t_lib}
+
+
+def time_flash(ops, ref, flush, S) -> dict:
+    """Whole-prompt prefill: B=1, prompt bucket S, qwen2.5-7b heads."""
+    import torch
+    import torch.nn.functional as F
+    Hq, Hkv, hd = 28, 4, 128
+    q, k, v = flash_case(1, S, S)
+    lens = torch.tensor([S], dtype=torch.int32, device=DEVICE)
+    t_kernel = time_ms(lambda: ops.flash_attention(q, k, v, kv_lens=lens), 20, flush)
+    t_plain = time_ms(lambda: ref.flash_prefill_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len=S,
+        kv_lens=lens), 5, flush)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
+    nbytes = 2 * (2 * S * Hq * hd + 2 * S * Hkv * hd)    # q, out, K, V
+    flops = 4 * (S * (S + 1) // 2) * Hq * hd             # causal pairs
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"flash prefill S={S}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+          f"SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": t_lib}
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+def logits_agree(model, params, cfg) -> None:
+    """One prompt at full width through a kernel engine and a plain-version
+    engine (``backend="ref"``, asked for by name) over the same weights:
+    the next-token logits of a decode step on the same input token agree."""
+    import torch
+    from repro_torch.core.request import Kind, Request
+    from repro_torch.engine.engine import ServingEngine
+
+    prompt = torch.randint(0, cfg.vocab_size, (300,),
+                           generator=torch.Generator().manual_seed(7)).tolist()
+    logits, tok = [], None
+    for backend in ("auto", "ref"):
+        eng = ServingEngine(model, params, num_pages=64, decode_buckets=(8,),
+                            backend=backend, device=DEVICE)
+        req = Request(Kind.ONLINE, 0.0, len(prompt), 4)
+        eng.add_request(req, prompt)
+        eng.prefill(req.rid)
+        _, _, tokens, positions, tables, lengths = eng._decode_args([req.rid])
+        tok = tokens[0] if tok is None else tok     # same input token on both
+        tokens[0] = tok
+        with torch.inference_mode():
+            out = eng._decode_logits(*(torch.as_tensor(a, device=DEVICE) for a in (
+                tokens.astype("int64"), positions.astype("int64"), tables, lengths)))
+        logits.append(out[0].float())
+        eng.release(req.rid)
+    ker, pln = logits
+    check(bool(torch.isfinite(ker).all()), "kernel-path logits are not finite")
+    rel = ((ker - pln).abs().max() / pln.abs().max()).item()
+    print(f"full-width logits, kernels vs plain versions: shape {tuple(ker.shape)}, "
+          f"max abs err / max |logit| = {rel:.3e} (tol {LOGITS_REL_TOL}), "
+          f"argmax {int(ker.argmax())} vs {int(pln.argmax())}")
+    check(rel <= LOGITS_REL_TOL, f"full-width logits disagree: {rel}")
+
+
+def main_path(fp_ops, pa_ops, cfg) -> dict:
+    import torch
+    from repro_torch.cluster.runtime import PoolRuntime, WallClock
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.request import Kind, Request
+    from repro_torch.data import traces as tr
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params "
+          f"({n_params * 2 / 1e9:.2f} GB bf16), seeded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    logits_agree(model, params, cfg)
+
+    rt = PoolRuntime(cfg, policy="ooco", n_strict=1, n_relaxed=1,
+                     clock=WallClock(), hw=H100_SXM, decode_buckets=(8,),
+                     chunk_tokens=0, decode_horizon=1, num_pages=1024,
+                     page_size=16, slo_ttft=2.0, slo_tpot=0.05, seed=0,
+                     device=DEVICE, model=model, params=params)
+    pool = rt.strict_pool[0].engine.cache
+    print(f"KV pools per engine: {pool.num_pages} pages x {pool.page_size} tokens, "
+          f"{2 * pool.k_pool.numel() * pool.k_pool.element_size() / 1e9:.3f} GB")
+    # warm-up outside the measured run: cuBLAS handles and the GEMM shapes
+    # of every prefill bucket up to 512 tokens and of the decode bucket, on
+    # each engine
+    for slot in rt.strict_pool + rt.relaxed_pool:
+        eng = slot.engine
+        for n in (8, 16, 32, 64, 128, 256, 512):
+            req = Request(Kind.OFFLINE, 0.0, n, 2)
+            eng.add_request(req, [1] * n)
+            eng.prefill(req.rid)
+            eng.decode_step([req.rid])
+            eng.release(req.rid)
+    # the scheduler's bs_sat memo (Alg. 1, PerfModel.compute_saturated_batch)
+    # costs ~1 s of host time the first time each power-of-two context bucket
+    # is seen; a server pays that once at startup
+    t0 = time.perf_counter()
+    for b in range(1, 12):
+        rt.pm.compute_saturated_batch(1 << b)
+    print(f"scheduler bs_sat memo for contexts up to 2048 filled in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+
+    online = tr.online_trace("ooc", duration=6.0, mean_qps=1.0, seed=0)
+    offline = tr.with_uniform_qps(tr.offline_requests(8, seed=1), 2.0)
+    torch.cuda.reset_peak_memory_stats()
+    fp_ops.flash_attention.launches = 0
+    pa_ops.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    summary = rt.run(online, offline, duration=6.0, max_prompt=512, max_output=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_prefill": fp_ops.flash_attention.launches,
+                "paged_attention": pa_ops.paged_attention.launches}
+    print("summary " + json.dumps(summary, sort_keys=True))
+    n_req = summary["online_requests"] + summary["offline_requests"]
+    n_fin = summary["online_finished"] + summary["offline_finished"]
+    print(f"requests finished: {n_fin}/{n_req} in {wall:.2f} s wall")
+    print(f"measured online TTFT p50 {summary['online_ttft_p50']} s, "
+          f"TPOT p50 {summary['online_tpot_p50']} s")
+    print(f"kernel launches on the main path: {launches}")
+    for slot in rt.strict_pool + rt.relaxed_pool:
+        st = slot.engine.stats
+        print(f"{slot.name}: {st.dispatches_by_kind['prefill']} prefills in "
+              f"{st.prefill_seconds:.3f} s, {st.decode_steps} decode steps in "
+              f"{st.decode_seconds:.3f} s (host wall, warm-up included)")
+    print("online (arrival s, TTFT s): " + ", ".join(
+        f"({r.arrival:.2f}, {r.ttft():.3f})" for r in rt.all_requests
+        if r.kind is Kind.ONLINE and r.ttft() is not None))
+    print(f"migrations {summary['migrations']}, pulls {summary['pulls']}, "
+          f"preemptions {summary['preemptions']}, evictions {summary['evictions']}")
+    print(f"torch.cuda.max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check(n_req > 0 and n_fin == n_req, f"only {n_fin}/{n_req} requests finished")
+    for name, n in launches.items():
+        check(n > 0, f"{name} kernel never launched on the main path")
+    for toks in rt.tokens.values():
+        check(all(0 <= t < cfg.vocab_size for t in toks), "token id out of range")
+    profile_engine(rt.relaxed_pool[0].engine, cfg)
+    return launches
+
+
+def profile_engine(eng, cfg) -> None:
+    """Where the time goes on one engine at the runtime's shapes: a 512-token
+    prefill, then decode steps of a full bucket (8 requests, context ~512).
+    Host wall time per call is taken without the profiler; a second pass
+    under torch.profiler gives the device's busy time (the sum of its kernel
+    times) and the kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.request import Kind, Request
+
+    g = torch.Generator().manual_seed(11)
+    reqs = [Request(Kind.OFFLINE, 0.0, 512, 64) for _ in range(8)]
+    for r in reqs:
+        eng.add_request(r, torch.randint(0, cfg.vocab_size, (512,), generator=g).tolist())
+    rids = [r.rid for r in reqs]
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    pending = iter(rids)
+    t_prefill = timed(lambda: eng.prefill(next(pending)), 3)
+    syncs_prefill = count_syncs(lambda: eng.prefill(next(pending)))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof_p:
+        eng.prefill(next(pending))
+        torch.cuda.synchronize()
+    for r in pending:
+        eng.prefill(r)
+    t_decode = timed(lambda: eng.decode_step(rids), 8)
+    syncs_decode = count_syncs(lambda: eng.decode_step(rids))
+    print(f"host syncs: {len(syncs_prefill)} per prefill {syncs_prefill}, "
+          f"{len(syncs_decode)} per decode step {syncs_decode}")
+    check(len(syncs_decode) == 1, f"a decode step made {syncs_decode} host syncs, not 1")
+    with profile(activities=acts) as prof_d:
+        for _ in range(4):
+            eng.decode_step(rids)
+        torch.cuda.synchronize()
+    for r in rids:
+        eng.release(r)
+    for what, prof, wall, n in (("prefill of 512 tokens", prof_p, t_prefill, 1),
+                                ("decode step, B=8, context ~512", prof_d, t_decode, 4)):
+        ev = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type)]
+        busy = {e.key: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
+                for e in ev}
+        total = sum(busy.values())
+        launched = sum(e.count for e in ev) / n
+        print(f"{what}: host wall {wall:.3f} ms per call (no profiler); device "
+              f"busy {total:.3f} ms per call ({100 * total / wall:.1f}% of the wall "
+              f"time, {100 - 100 * total / wall:.1f}% idle); {launched:.0f} kernels "
+              f"per call")
+        for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"  {ms:8.3f} ms  {100 * ms / max(total, 1e-9):5.1f}%  {key[:90]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_prefill import ops as fp_ops, ref as fp_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
+
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    reports = build.build()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(reports) or 'cached'})")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paged_err = check_paged(pa_ops, pa_ref)
+    flash_err = check_flash(fp_ops, fp_ref)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    paged_t = time_paged(pa_ops, pa_ref, flush)
+    flash_t = time_flash(fp_ops, fp_ref, flush, 512)
+    time_flash(fp_ops, fp_ref, flush, 2048)
+    del flush
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import get_config
+    launches = main_path(fp_ops, pa_ops, get_config("qwen2.5-7b"))
+    kernels = [
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:72",
+         "launches": launches["paged_attention"], "max_abs_err": paged_err,
+         **paged_t},
+        {"name": "flash_prefill", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+         "replaces": "src/repro/kernels/flash_prefill/kernel.py:86",
+         "launches": launches["flash_prefill"], "max_abs_err": flash_err,
+         **flash_t},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

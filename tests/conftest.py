@@ -48,6 +48,10 @@ except ImportError:
     sys.modules["hypothesis.strategies"] = _st
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA CUDA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
