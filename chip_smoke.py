@@ -6,20 +6,25 @@
 1. Prints the card (nvidia-smi name and power limit) and builds both CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc, in parallel.
 2. Kernel check: each kernel against its plain PyTorch version on the card,
-   in bf16, at the main path's shapes (paged decode at B in {1, 8} with
-   ragged lengths 1..2048 and a trash-page row; flash prefill at S in {128,
-   512, 2048} with per-row kv_lens), each max abs error beside its
-   tolerance. Then CUDA-event timings: kernel, plain version, the least time
-   the card could take (bound) and one PyTorch library call computing the
-   same function (which the port never calls).
+   in bf16, at the main path's shapes (paged decode at B in {1, 8}: the
+   main path's split plans at 32 and 64 pages, ragged lengths 1..2048, a
+   trash-page row and lengths on the split planner's chunk boundaries;
+   flash prefill at S in {8, 128, 512, 2048} with per-row kv_lens, a chunk
+   at q_offset > 0, a sliding window, a softcap, rows that see no key and
+   hd 64), each max abs error beside its tolerance, and each wrapper call's
+   host syncs (must be 0). Then timings on CUDA events (``time_ms``):
+   kernel, plain version, the least time the card could take (bound) and
+   one PyTorch library call computing the same function (which the port
+   never calls).
 3. Main path: full-width qwen2.5-7b (28 layers, bf16, seeded random
    weights) served by the port's PoolRuntime in CoLocatedServer's
    configuration (ooco, 1 strict + 1 relaxed engine, decode bucket 8, whole-
    prompt prefill, one decode step per dispatch) on a few online and offline
    requests. Every request must finish, both kernels must have launched, and
    one prompt's logits through the kernels must agree with the plain path.
-4. Prints the kernel table as one JSON line, the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+4. Prints the kernel table as one JSON line (flash prefill at S=512 and at
+   S=2048, each row with its ratio to the library call), the card line
+   again, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device the
 script exits 1 at once. It imports nothing of JAX and nothing of ``repro``.
@@ -100,21 +105,35 @@ def count_syncs(fn) -> list[str]:
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, iters: int, flush) -> float:
-    """Mean ms of ``fn`` on the card, CUDA events around each call, with the
-    L2 cache flushed (a 64 MB write) before each, as the main path finds it
-    cold: between two attention calls the engine streams a layer's weights."""
+    """Device ms that one call of ``fn`` adds to the stream, with the L2 cache
+    flushed before each call as the main path finds it cold: between two
+    attention calls the engine streams a layer's weights, so the flush reads
+    64 MB (a read leaves clean lines, as a weight stream does; a write would
+    leave 50 MB of dirty lines for the call to write back). Each run of
+    ``iters`` flushes is queued behind a device-side sleep (outside the timed
+    window), so the host's time to enqueue a call never shows as a gap. Runs
+    with ``fn`` after every flush alternate with runs of the flushes alone,
+    twice each; the difference per call is the time ``fn`` adds to the
+    stream, its launch included."""
     import torch
     for _ in range(2):
         fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for s, e in zip(starts, ends):
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+    def run(with_fn: bool) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)   # ~0.1 s at the card's clock: room to enqueue
+        start.record()
+        for _ in range(iters):
+            flush.sum()
+            if with_fn:
+                fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    runs = [run(True), run(False), run(True), run(False)]
+    return (runs[0] + runs[2] - runs[1] - runs[3]) / (2 * iters)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -128,14 +147,16 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def paged_case(B, lengths, *, Hq=28, Hkv=4, hd=128, page=16, trash_row=None,
-               seed=0):
-    """A paged pool and tables for ``lengths``: each row's pages are drawn
-    without replacement from pages >= 1, and table entries past the length
-    are garbage page ids. ``trash_row`` mimics a padded batch row: table row
-    all zeros (the trash page) and length 1."""
+               P=None, seed=0):
+    """A paged pool and (B, P) tables for ``lengths`` (P by default the
+    fewest pages that hold the longest row; the engine pads it to a power of
+    two): each row's pages are drawn without replacement from pages >= 1,
+    and table entries past the length are garbage page ids. ``trash_row``
+    mimics a padded batch row: table row all zeros (the trash page) and
+    length 1."""
     import torch
     g = torch.Generator(DEVICE).manual_seed(seed)
-    P = -(-max(lengths) // page)
+    P = P or -(-max(lengths) // page)
     num_pages = B * P + 1
     q = torch.randn(B, Hq, hd, generator=g, device=DEVICE).bfloat16()
     kp = torch.randn(num_pages, page, Hkv, hd, generator=g, device=DEVICE).bfloat16()
@@ -150,18 +171,40 @@ def paged_case(B, lengths, *, Hq=28, Hkv=4, hd=128, page=16, trash_row=None,
 
 
 def check_paged(ops, ref, softcap_cases=(0.0, 50.0)) -> float:
+    """The main path's plans first: bucket 8 with tables padded to 32 and to
+    64 pages (contexts up to 512 and up to 1024; 8 splits of 64 and of 128
+    tokens), ragged, with a padded row. Then ragged lengths 1..2048; lengths
+    at the planner's chunk boundaries (one below, at, one above), shorter
+    than one chunk, and 2048, so that empty chunks, chunks cut by the length
+    and the merge all run; and short contexts (two pages), where the planner
+    takes one chunk, as for the main path's short prompts."""
+    import torch
     worst = 0.0
-    cases = [(1, [2048], None), (8, [1, 17, 100, 512, 1000, 2048, 5, 777], 6)]
-    for B, lengths, trash in cases:
-        q, kp, vp, tables, lens = paged_case(B, lengths, trash_row=trash)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, splits = ops.plan_splits(8, 4, 2048 // 16, 16, sms)
+    print(f"paged decode plan at B=8, 128 pages of 16: chunk {chunk} tokens, "
+          f"{splits} splits, {8 * 4 * splits} blocks on {sms} SMs")
+    boundary = [chunk - 1, chunk, chunk + 1, 2 * chunk, 5, 2048, 1, 3 * chunk + 1]
+    cases = [(8, [512, 300, 497, 1, 64, 65, 511, 129], 3, 32),
+             (8, [540, 512, 129, 1, 128, 1000, 257, 33], 3, 64),
+             (1, [2048], None, None), (8, [1, 17, 100, 512, 1000, 2048, 5, 777], 6, None),
+             (8, boundary, 6, None), (8, [5, 30, 17, 32, 1, 9, 31, 2], 6, None)]
+    for B, lengths, trash, P in cases:
+        q, kp, vp, tables, lens = paged_case(B, lengths, trash_row=trash, P=P)
+        print(f"paged decode plan at B={B}, {tables.shape[1]} pages: "
+              f"{ops.plan_splits(B, 4, tables.shape[1], 16, sms)} (chunk, splits)")
         for cap in softcap_cases:
             out = ops.paged_attention(q, kp, vp, tables, lens, num_kv_heads=4,
                                       logit_softcap=cap)
             want = ref.paged_attention_ref(q.reshape(B, 4, 7, 128), kp, vp, tables,
                                            lens, logit_softcap=cap).reshape(q.shape)
-            err = compare(f"paged decode B={B} lengths={lengths} softcap={cap}",
-                          out, want)
+            err = compare(f"paged decode B={B} P={tables.shape[1]} lengths={lengths} "
+                          f"softcap={cap}", out, want)
             worst = max(worst, err)
+    syncs = count_syncs(lambda: ops.paged_attention(q, kp, vp, tables, lens,
+                                                    num_kv_heads=4))
+    print(f"host syncs per paged decode call: {len(syncs)} {syncs}")
+    check(not syncs, f"the paged decode wrapper synchronized: {syncs}")
     return worst
 
 
@@ -177,29 +220,52 @@ def flash_case(B, Sq, Skv, *, Hq=28, Hkv=4, hd=128, seed=1):
 def check_flash(ops, ref) -> float:
     import torch
     worst = 0.0
-    # (B, Sq, Skv, q_offset, kv_lens): whole prompts with ragged rows, and
-    # one chunk at q_offset > 0 over a longer key range
-    cases = [(2, S, S, 0, [S, S // 2 + 3]) for S in (128, 512, 2048)]
-    cases.append((1, 128, 512, 384, [512]))
-    for B, Sq, Skv, off, kv in cases:
-        q, k, v = flash_case(B, Sq, Skv)
+    # (B, Sq, Skv, q_offset, kv_lens, window, softcap, Hq, Hkv, hd): whole
+    # prompts with ragged rows, from the smallest prompt bucket up; a chunk at
+    # q_offset > 0 over a longer key range; a sliding window (gemma2's local
+    # layers) and a softcap (gemma2's attention), alone and together on a
+    # chunk whose Sq is no multiple of the query tile; the two together on a
+    # ragged row whose last queries see no key (past kv_lens + window: the
+    # plain version gives them the mean of V); and hd 64 with G = 2
+    qwen = (28, 4, 128)
+    cases = [(1, 8, 8, 0, [8], 0, 0.0, *qwen)]
+    cases += [(2, S, S, 0, [S, S // 2 + 3], 0, 0.0, *qwen) for S in (128, 512, 2048)]
+    cases += [(1, 128, 512, 384, [512], 0, 0.0, *qwen),
+              (1, 512, 512, 0, [512], 100, 0.0, *qwen),
+              (2, 512, 512, 0, [512, 300], 0, 50.0, *qwen),
+              (1, 200, 600, 400, [600], 256, 30.0, *qwen),
+              (2, 200, 264, 64, [264, 130], 96, 30.0, *qwen),
+              (2, 300, 300, 0, [300, 77], 0, 0.0, 8, 4, 64)]
+    for B, Sq, Skv, off, kv, window, cap, Hq, Hkv, hd in cases:
+        q, k, v = flash_case(B, Sq, Skv, Hq=Hq, Hkv=Hkv, hd=hd)
         lens = torch.tensor(kv, dtype=torch.int32, device=DEVICE)
-        out = ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off)
+        out = ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off, window=window,
+                                  logit_softcap=cap)
         want = ref.flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), kv_len=Skv, q_offset=off,
-                                     kv_lens=lens).transpose(1, 2)
+                                     kv_lens=lens, window=window,
+                                     logit_softcap=cap).transpose(1, 2)
         err = compare(f"flash prefill B={B} Sq={Sq} Skv={Skv} q_offset={off} "
-                      f"kv_lens={kv}", out, want)
+                      f"kv_lens={kv} window={window} softcap={cap} heads={Hq}/{Hkv} "
+                      f"hd={hd}", out, want)
         worst = max(worst, err)
+    syncs = count_syncs(lambda: ops.flash_attention(q, k, v, kv_lens=lens))
+    print(f"host syncs per flash prefill call: {len(syncs)} {syncs}")
+    check(not syncs, f"the flash prefill wrapper synchronized: {syncs}")
     return worst
 
 
 def time_paged(ops, ref, flush, B=8, ctx=512) -> dict:
-    """The runtime's decode shape: bucket 8, context 512, qwen2.5-7b heads."""
+    """The runtime's decode shape: bucket 8, context 512, qwen2.5-7b heads.
+    The timed call's output is held against the plain version first."""
     import torch
     import torch.nn.functional as F
     q, kp, vp, tables, lens = paged_case(B, [ctx] * B)
     Hq, hd, Hkv = 28, 128, 4
+    compare(f"paged decode B={B} ctx={ctx} (timed inputs)",
+            ops.paged_attention(q, kp, vp, tables, lens, num_kv_heads=Hkv),
+            ref.paged_attention_ref(q.reshape(B, Hkv, Hq // Hkv, hd), kp, vp, tables,
+                                    lens).reshape(q.shape))
     t_kernel = time_ms(lambda: ops.paged_attention(q, kp, vp, tables, lens,
                                                    num_kv_heads=Hkv), 200, flush)
     t_plain = time_ms(lambda: ref.paged_attention_ref(
@@ -211,6 +277,8 @@ def time_paged(ops, ref, flush, B=8, ctx=512) -> dict:
     qs = q[:, :, None]
     t_lib = time_ms(lambda: F.scaled_dot_product_attention(qs, kc, vc, enable_gqa=True),
                     200, flush)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, splits = ops.plan_splits(B, Hkv, tables.shape[1], kp.shape[1], sms)
     lengths = lens.long()
     nbytes = (2 * int(lengths.sum()) * Hkv * hd * 2      # K and V rows read once
               + 2 * B * Hq * hd * 2                      # q in, out
@@ -219,8 +287,8 @@ def time_paged(ops, ref, flush, B=8, ctx=512) -> dict:
     b_ms, b_by = bound(nbytes, flops)
     print(f"paged decode B={B} ctx={ctx}: kernel {t_kernel:.4f} ms, plain "
           f"{t_plain:.4f} ms, SDPA on a pre-gathered cache {t_lib:.4f} ms "
-          f"(gather excluded), bound {b_ms:.4f} ms ({b_by}); grid {B}x{Hkv} = "
-          f"{B * Hkv} blocks on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+          f"(gather excluded), bound {b_ms:.4f} ms ({b_by}); grid {B}x{Hkv}x{splits} = "
+          f"{B * Hkv * splits} blocks of {chunk} tokens on {sms} SMs")
     return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": t_lib}
 
@@ -432,7 +500,9 @@ def profile_engine(eng, cfg) -> None:
               f"busy {total:.3f} ms per call ({100 * total / wall:.1f}% of the wall "
               f"time, {100 - 100 * total / wall:.1f}% idle); {launched:.0f} kernels "
               f"per call")
-        for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
+        top = sorted(busy.items(), key=lambda kv: -kv[1])
+        ours = [kv for kv in top[6:] if "paged_decode" in kv[0] or "flash_prefill" in kv[0]]
+        for key, ms in top[:6] + ours:
             print(f"  {ms:8.3f} ms  {100 * ms / max(total, 1e-9):5.1f}%  {key[:90]}")
 
 
@@ -463,7 +533,7 @@ def main() -> int:
           f"({', '.join(reports) or 'cached'})")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -472,24 +542,27 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     paged_t = time_paged(pa_ops, pa_ref, flush)
     flash_t = time_flash(fp_ops, fp_ref, flush, 512)
-    time_flash(fp_ops, fp_ref, flush, 2048)
+    flash_long_t = time_flash(fp_ops, fp_ref, flush, 2048)
     del flush
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config
     launches = main_path(fp_ops, pa_ops, get_config("qwen2.5-7b"))
+    paged = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention/kernel.py:72",
+             "launches": launches["paged_attention"], "max_abs_err": paged_err}
+    flash = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+             "replaces": "src/repro/kernels/flash_prefill/kernel.py:86",
+             "launches": launches["flash_prefill"], "max_abs_err": flash_err}
     kernels = [
-        {"name": "paged_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention/kernel.py:72",
-         "launches": launches["paged_attention"], "max_abs_err": paged_err,
-         **paged_t},
-        {"name": "flash_prefill", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
-         "replaces": "src/repro/kernels/flash_prefill/kernel.py:86",
-         "launches": launches["flash_prefill"], "max_abs_err": flash_err,
-         **flash_t},
+        {"name": "paged_attention", "shape": "B=8 ctx=512", **paged, **paged_t},
+        {"name": "flash_prefill", "shape": "B=1 S=512", **flash, **flash_t},
+        # prompts are clipped to 512 tokens on the main path: no launch at S=2048
+        {"name": "flash_prefill (S=2048)", "shape": "B=1 S=2048", **flash,
+         "launches": 0, **flash_long_t},
     ]
+    for k in kernels:
+        k["x_library"] = k["ms"] / k["library_ms"]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

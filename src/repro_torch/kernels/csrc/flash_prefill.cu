@@ -1,5 +1,6 @@
-// Causal flash prefill attention for Hopper (sm_90a): bf16 tensor-core
-// products (mma.sync m16n8k16, f32 accumulate) and an f32 online softmax.
+// Causal flash prefill attention for Hopper (sm_90a): wgmma tensor-core
+// products fed by TMA through an mbarrier ring, an f32 online softmax in
+// registers.
 //
 // Replaces: src/repro/kernels/flash_prefill/kernel.py, flash_prefill_pallas
 // (kernel body _kernel). Causal GQA attention, optionally sliding-window, of
@@ -10,80 +11,140 @@
 // What bounds it on this card: at a prompt of 512 tokens (qwen2.5-7b widths,
 // Hq = 28, Hkv = 4, hd = 128) the bytes of q, K, V and the output (8.4 MB,
 // 2.5 us at 3.35 TB/s) outweigh the causal products (1.9 GFLOP, 1.9 us at the
-// bf16 tensor-core peak); from about 700 tokens on the products dominate and
-// grow with the square of the prompt.
+// bf16 tensor-core peak), and how well the grid fills the 132 SMs decides most
+// of the time; from about 700 tokens on the products dominate (30.1 GFLOP at
+// 2048 tokens, 30 us at 989 TFLOP/s) and only wgmma reaches that rate.
 //
 // What the design does about it:
-//  * one thread block of four warps per (batch row, query head, 64-row query
-//    tile); each warp owns 16 query rows. A loop over 64-key tiles takes the
-//    place of the TPU's sequential grid axis and stops at min(kv_lens[b], the
-//    tile's causal bound), so the masked upper triangle is never loaded;
-//  * both products run on the tensor cores (mma.sync, operands from shared
-//    memory through ldmatrix); the scores stay in registers, and the softmax
-//    probabilities go straight from the score accumulators into the A
-//    operand of P @ V (rounded to bf16) without touching shared memory;
-//  * q_offset and the per-row kv_lens are runtime arguments, so one build
-//    serves every prompt bucket and chunk position;
-//  * the model layout (B, S, H, hd) is read through strides, the ragged edges
-//    are masked here, and nothing is padded or transposed outside.
-// Left for later: wgmma and TMA, double-buffered tiles, warp specialisation.
+//  * one block per (query tile, KV head, batch row) packs the G query heads of
+//    the KV head into its 64 rows (row = position * G + head: 9 positions x 7
+//    heads for qwen2.5-7b), so each K/V tile is fetched once per group, not
+//    once per head. A block is one consumer warpgroup and one producer warp,
+//    small enough for two blocks per SM: B=1, S=512 gives 228 blocks, all
+//    resident at once on the 132 SMs. (Two consumer warpgroups of 128 rows
+//    with 128-key tiles spilled registers and measured no faster.);
+//  * the producer warp keeps TMA copies in flight: the Q tile once, then K and
+//    V tiles of 64 keys into a two-stage ring, each stage with its own K-full,
+//    V-full and empty mbarrier. The tensor maps are encoded on the host per
+//    call over the model layout's strides (driver entry point, no libcuda
+//    link), with 128-B swizzle matching the wgmma descriptors;
+//  * S = Q K^T is wgmma m64n64k16 with Q and K from shared memory (K-major);
+//    O += P V is wgmma m64nHDk16 with P from registers (the S accumulator in
+//    bf16 is already the A fragment) and V from shared memory (MN-major,
+//    transpose bit). A tile's P V and the next tile's S are issued back to
+//    back and waited for together, once per tile;
+//  * the softmax runs in f32 registers in base 2, one FFMA and one exp2f per
+//    score (log2(e) folded into the scale); the mask is evaluated only on
+//    tiles that cross the causal diagonal, the window edge or kv_lens[b]. On
+//    the tile that crosses kv_lens[b] the V rows past it are zeroed in shared
+//    memory, so whatever lies there cannot turn into NaN through P V;
+//  * query tiles run heaviest first (reverse causal order);
+//  * q_offset and the per-row kv_lens are runtime arguments, and a ragged
+//    Sq needs nothing: TMA fills positions past the tensor with zeros and the
+//    epilogue writes only rows inside it;
+//  * a row that sees no key at all (a padded query past kv_lens[b] plus the
+//    window, or kv_lens[b] = 0) gets what the plain version gives it: its
+//    scores are all masked, so its softmax is uniform over all Skv keys and
+//    the row is the mean of V, read from global memory after the epilogue by
+//    an out-of-line function. Only such rows take that path.
+#include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBQ = 16 * kWarps;  // query rows per block
-constexpr int kBK = 64;           // keys per tile
+constexpr int kBN = 64;      // keys per tile
+constexpr int kStages = 2;   // depth of the K/V ring
+constexpr int kMaxGP = 16;   // query heads packed into one block
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Smem {
-  static constexpr int kStr = HD + 8;  // 16-byte row shift: conflict-free ldmatrix
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(__nv_bfloat16) * kBQ * kStr;
-  static constexpr size_t v = k + sizeof(__nv_bfloat16) * kBK * kStr;
-  static constexpr size_t bytes = v + sizeof(__nv_bfloat16) * kBK * kStr;
+  static constexpr int kPanels = HD / 64;  // 128-byte column panels (the swizzle width)
+  static constexpr int kRows = 64;        // query rows of a block: one warpgroup
+  static constexpr uint32_t q_panel = kRows * 128;
+  static constexpr uint32_t kv_panel = kBN * 128;
+  static constexpr uint32_t q = 0;                                     // [kPanels][kRows][64]
+  static constexpr uint32_t k = q + kPanels * q_panel;                 // [kStages][kPanels][kBN][64]
+  static constexpr uint32_t v = k + kStages * kPanels * kv_panel;      // [kStages][kPanels][kBN][64]
+  static constexpr uint32_t bar = v + kStages * kPanels * kv_panel;    // q_full, k_full, v_full, empty
+  static constexpr uint32_t bytes = bar + 8 * (1 + 3 * kStages);
+  static constexpr uint32_t alloc = bytes + 1024;  // the swizzle needs a 1024-byte aligned base
 };
 
-// rows x HD bf16 from global (row stride `rs` elements) into shared memory
-// with row stride `str`; rows at or past `valid` are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int str, const __nv_bfloat16* src,
-                                          long long rs, int rows, int valid) {
-  constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r < valid) x = *reinterpret_cast<const uint4*>(src + r * rs + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * str + c * 8) = x;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits for the phase of `bar` with this parity. A wait that has not ended
+// after ~2^26 polls (seconds; a tile takes microseconds) traps, so a fault
+// in the pipeline ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c (16x8, f32) += a (16x16, bf16, row-major) * b (16x8, bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// One box of a 4-D tensor map into shared memory, completing on `bar`. The
+// map's dims are (hd, then H, S, B in the order of their strides); `perm`
+// holds the slot of H, S and B in 2 bits each.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int perm, int x, int h, int s, int b) {
+  int c[4];
+  c[0] = x;
+  c[perm & 3] = h;
+  c[(perm >> 2) & 3] = s;
+  c[(perm >> 4) & 3] = b;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3])
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of wgmma accumulators across the
+// asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -91,123 +152,235 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-// Fragment layout of mma m16n8k16 (lane = 4 * g + t): an accumulator c[i]
-// of an 8-column tile holds row g + 8 * (i / 2), column 2 * t + i % 2.
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    const int32_t* __restrict__ kv_lens, int Sq, int Skv, int Hkv,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int q_offset, int causal, int window, float scale,
-    float softcap) {
-  using L = Smem<HD>;
-  constexpr int kStr = L::kStr;
-  constexpr int KS = HD / 16;   // k-steps of Q @ K^T
-  constexpr int NT = kBK / 8;   // 8-key score tiles
-  constexpr int DT = HD / 8;    // 8-dim output tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L::k);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + L::v);
+// d (64 x 64, f32) = A (64 x 16, smem, K-major) * B (64 x 16, smem, K-major)^T
+// (+ d when `accumulate`)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = gridDim.y / Hkv, hk = h / G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = qt * kBQ;  // first query row of this block
-  const int q_rows = min(kBQ, Sq - q0);
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The output row of a query that sees no key, as the plain version gives it:
+// all its scores are masked alike, so its softmax is uniform over all Skv
+// keys and the row is the mean of V. `op` and `vr` point at this thread's
+// first two columns. Out of line, so that this rare path costs the main
+// loop no registers.
+template <int HD>
+__device__ __noinline__ void write_mean_v(__nv_bfloat16* op, const __nv_bfloat16* vr,
+                                          long long v_ss, int Skv) {
+  for (int j = 0; j < HD / 8; ++j) {
+    float x0 = 0.f, x1 = 0.f;
+    for (int key = 0; key < Skv; ++key) {
+      const float2 x =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vr + key * v_ss + j * 8));
+      x0 += x.x;
+      x1 += x.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(op + j * 8) = __floats2bfloat162_rn(x0 / Skv, x1 / Skv);
+  }
+}
+
+// Block (blockIdx.x: query tile, heaviest first; blockIdx.y: KV head and head
+// group; blockIdx.z: batch row). Warps 0..3 are the consumer warpgroup, warp
+// 4 the producer. Rows of the block's Q tile are (position, packed head)
+// pairs: position-major (row = pos * GP + g) when the q map's S dim is outer
+// to its H dim, else head-major (row = g * qbox_s + pos).
+template <int HD>
+__global__ void __launch_bounds__(160, 2) flash_prefill_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ v, long long v_sb, long long v_ss, long long v_sh,
+    const int32_t* __restrict__ kv_lens, int Sq, int Skv, int G, int GP, int npos, int qbox_s,
+    int kv_box, int q_perm, int k_perm, int v_perm, long long o_sb, long long o_ss,
+    long long o_sh, int q_offset, int causal, int window, float scale, float softcap) {
+  using L = Smem<HD>;
+  constexpr int kPanels = L::kPanels;
+  constexpr int NS = kBN / 2;  // score registers per thread
+  constexpr int kConsumers = 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)));
+  const uint32_t q_full = base + L::bar;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kStages, empty = v_full + 8 * kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest query tiles first
+  const int groups = G / GP;
+  const int hk = blockIdx.y / groups;
+  const int gbase = hk * G + (blockIdx.y % groups) * GP;  // first query head of the block
+  const int b = blockIdx.z;
+  const int p0 = qt * npos;
+  const int nq = min(npos, Sq - p0);  // positions of this tile inside the tensor
   const int kv_len = min(kv_lens[b], Skv);
 
-  load_tile<HD>(q_s, kStr, q + b * q_sb + (long long)q0 * q_ss + h * q_sh, q_ss, kBQ, q_rows);
-
-  // key range: up to the causal bound of the last real query row, and from
-  // the window's left edge of the first one
-  const int qpos_first = q_offset + q0, qpos_last = q_offset + q0 + q_rows - 1;
+  // key range: up to the causal bound of the last position, from the window's
+  // left edge of the first one
+  const int qfirst = q_offset + p0, qlast = q_offset + p0 + nq - 1;
   int kv_end = kv_len, kv_begin = 0;
   if (causal) {
-    kv_end = min(kv_end, qpos_last + 1);
-    if (window > 0) kv_begin = max(0, qpos_first - window + 1) / kBK * kBK;
+    kv_end = min(kv_end, qlast + 1);
+    if (window > 0) kv_begin = max(0, qfirst - window + 1);
   }
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-  // this thread's two query rows (g and g + 8 of the warp's 16)
-  const int qpos0 = q_offset + q0 + warp * 16 + g;
+  const int t_begin = kv_begin / kBN;
+  const int ntiles = kv_end > kv_begin ? (kv_end + kBN - 1) / kBN - t_begin : 0;
 
-  uint32_t qa[KS][4];
-  float o[DT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // previous tile's readers are done (and q_s is landed)
-    const int k_rows = min(kBK, kv_end - k0);
-    load_tile<HD>(k_s, kStr, kb + (long long)k0 * k_ss, k_ss, kBK, k_rows);
-    load_tile<HD>(v_s, kStr, vb + (long long)k0 * v_ss, v_ss, kBK, k_rows);
-    __syncthreads();
-    if (k0 == kv_begin) {  // Q fragments, once per block
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int m8 = lane / 8;
-        ldmatrix_x4(qa[ks], q_s + (warp * 16 + (m8 & 1) * 8 + lane % 8) * kStr +
-                                ks * 16 + (m8 >> 1) * 8);
+  if (warp == 4) {
+    // ================= producer: one lane issues every copy =================
+    if (lane == 0) {
+      mbar_expect_tx(q_full, kPanels * GP * qbox_s * 128);
+      for (int p = 0; p < kPanels; ++p)
+        tma_load(base + L::q + p * L::q_panel, &q_map, q_full, q_perm, p * 64, gbase, p0, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % kStages, round = i / kStages;
+        if (round > 0) mbar_wait(empty + 8 * st, (round - 1) & 1);
+        const int k0 = (t_begin + i) * kBN;
+        mbar_expect_tx(k_full + 8 * st, kPanels * kv_box * 128);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(base + L::k + (st * kPanels + p) * L::kv_panel, &k_map, k_full + 8 * st,
+                   k_perm, p * 64, hk, k0, b);
+        mbar_expect_tx(v_full + 8 * st, kPanels * kv_box * 128);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(base + L::v + (st * kPanels + p) * L::kv_panel, &v_map, v_full + 8 * st,
+                   v_perm, p * 64, hk, k0, b);
       }
     }
+    return;
+  }
 
-    // ---- S = Q K^T on the tensor cores ----
-    float s[NT][4];
+  // ======================= consumers: 64 rows per warpgroup =======================
+  const int t4 = lane % 4;
+  const bool pos_major = ((q_perm >> 2) & 3) > (q_perm & 3);
+  int qpos[2], prow[2], hrow[2];
+  bool live[2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + lane / 4 + 8 * r;
+    prow[r] = pos_major ? row / GP : row % qbox_s;
+    hrow[r] = pos_major ? row % GP : row / qbox_s;
+    live[r] = row < GP * qbox_s && prow[r] < nq;
+    qpos[r] = q_offset + p0 + prow[r];
+  }
+
+  float o[HD / 2];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const bool capped = softcap > 0.f;
+  const float c_scale = capped ? scale / softcap : scale * kLog2e;
+  const float c_cap = softcap * kLog2e;
+  const uint32_t q_addr = base + L::q;
+
+  // S = Q K^T of one tile into s (asynchronous: committed, not waited for)
+  auto issue_s = [&](float(&acc)[NS], int i) {
+    const int st = i % kStages;
+    const uint32_t k_addr = base + L::k + st * kPanels * L::kv_panel;
+    mbar_wait(k_full + 8 * st, (i / kStages) & 1);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kf[4];
-        const int m8 = lane / 8;
-        ldmatrix_x4(kf, k_s + (j * 8 + (m8 >> 1) * 8 + lane % 8) * kStr + ks * 16 +
-                            (m8 & 1) * 8);
-        mma_bf16(s[j], qa[ks], kf[0], kf[1]);
-        mma_bf16(s[j + 1], qa[ks], kf[2], kf[3]);
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      const uint32_t off = (ks % 4) * 32;  // 16 columns into the swizzled panel
+      const uint64_t dq = desc_sw128(q_addr + (ks / 4) * L::q_panel + off, 16, 1024);
+      const uint64_t dk = desc_sw128(k_addr + (ks / 4) * L::kv_panel + off, 16, 1024);
+      wgmma_ss_n64(acc, dq, dk, ks > 0);
+    }
+    wgmma_commit();
+  };
+
+  // Each iteration waits once: for its S and the previous tile's P V, which
+  // were in flight together; then it issues its own P V and the next tile's
+  // S back to back, so the tensor cores are fed across the softmax.
+  float s[NS];
+  uint32_t pa[kBN / 16][4];
+  mbar_wait(q_full, 0);
+  if (ntiles > 0) issue_s(s, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % kStages;
+    const int k0 = (t_begin + i) * kBN;
+    const uint32_t v_addr = base + L::v + st * kPanels * L::kv_panel;
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(o);
+    if (i > 0) mbar_arrive(empty + 8 * ((i - 1) % kStages));  // tile i - 1's K and V are read
+
+    // ---- online softmax in base 2: a row spans the 4 lanes of a quad ----
+    const bool edge = k0 + kBN > kv_len ||
+                      (causal && (k0 + kBN - 1 > qfirst || (window > 0 && qlast - k0 >= window)));
+    if (edge) {  // masked scores become -1e30 (ignored by the max, zeroed below)
+#pragma unroll
+      for (int e = 0; e < NS; ++e) {
+        const int key = k0 + (e / 4) * 8 + 2 * t4 + (e & 1);
+        const int qp = qpos[(e >> 1) & 1];
+        bool ok = key < kv_len;
+        if (causal) ok = ok && key <= qp && (window <= 0 || qp - key < window);
+        s[e] = ok ? s[e] : kNegInf;
       }
     }
-
-    // ---- mask, online softmax (a row spans the 4 lanes of a quad) ----
-    float mx[2] = {kNegInf, kNegInf};
+    float mx[2] = {kNegInf, kNegInf}, alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qpos = qpos0 + 8 * (i / 2);
-        const int kpos = k0 + j * 8 + 2 * t + i % 2;
-        bool ok = kpos < kv_len;
-        if (causal) {
-          ok = ok && kpos <= qpos;
-          if (window > 0) ok = ok && qpos - kpos < window;
-        }
-        float x = s[j][i] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        s[j][i] = ok ? x : kNegInf;
-        mx[i / 2] = fmaxf(mx[i / 2], s[j][i]);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
+    for (int e = 0; e < NS; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
+      // the raw max, in the base-2 units of the scores (both maps increase)
+      const float m_tile = capped ? tanhf(mx[r] * c_scale) * c_cap : mx[r] * c_scale;
+      const float m_new = fmaxf(m[r], m_tile);
+      alpha[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = s[j][i] > kNegInf ? expf(s[j][i] - m[i / 2]) : 0.f;
-        s[j][i] = p;
-        sum[i / 2] += p;
-      }
+    for (int e = 0; e < NS; ++e) {
+      const int r = (e >> 1) & 1;
+      float p = capped ? exp2f(tanhf(s[e] * c_scale) * c_cap - m[r])
+                       : exp2f(fmaf(s[e], c_scale, -m[r]));
+      if (edge) p = s[e] > kNegInf ? p : 0.f;
+      s[e] = p;
+      sum[r] += p;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -216,72 +389,168 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       l[r] = l[r] * alpha[r] + sum[r];
     }
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
+    for (int e = 0; e < HD / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    // P in bf16: the S accumulator of 16 keys is the A fragment of P V
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
 
-    // ---- O += P V: score accumulators become the A operand directly ----
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t vf[4];
-        const int m8 = lane / 8;
-        ldmatrix_x4_trans(vf, v_s + (kk * 16 + (m8 & 1) * 8 + lane % 8) * kStr + j * 8 +
-                                  (m8 >> 1) * 8);
-        mma_bf16(o[j], pa, vf[0], vf[1]);
-        mma_bf16(o[j + 1], pa, vf[2], vf[3]);
+    // ---- O += P V, then the next tile's S ----
+    mbar_wait(v_full + 8 * st, (i / kStages) & 1);
+    if (k0 + kBN > kv_len) {
+      // zero the V rows at and past kv_len (whatever lies there, 0 x it
+      // must stay 0), then make the stores visible to wgmma
+      const int first = kv_len - k0;
+      for (int idx = threadIdx.x; idx < kPanels * (kBN - first) * 8; idx += kConsumers) {
+        const int p = idx / ((kBN - first) * 8), rem = idx % ((kBN - first) * 8);
+        *reinterpret_cast<uint4*>(smem + (v_addr - base) + p * L::kv_panel +
+                                  (first + rem / 8) * 128 + (rem % 8) * 16) = make_uint4(0, 0, 0, 0);
       }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t dv = desc_sw128(v_addr + kk * 16 * 128, L::kv_panel, 1024);
+      if constexpr (HD == 128)
+        wgmma_rs_n128(o, pa[kk], dv);
+      else
+        wgmma_rs_n64(o, pa[kk], dv);
+    }
+    wgmma_commit();
+    if (i + 1 < ntiles) issue_s(s, i + 1);
   }
+  wgmma_wait_all();
+  fence_regs(o);
 
+  // ---- epilogue: rows inside the tensor, straight to the model layout ----
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + g + 8 * r;
-    if (row >= q_rows) continue;
+    if (!live[r]) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* op = out + b * o_sb + (long long)(q0 + row) * o_ss + h * o_sh + 2 * t;
+    __nv_bfloat16* op = out + b * o_sb + (long long)(p0 + prow[r]) * o_ss +
+                        (long long)(gbase + hrow[r]) * o_sh + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < DT; ++j)
+    for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(op + j * 8) =
-          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
+  // rows that saw no key (l = 0, written as 0 above) get the mean of V
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (live[r] && l[r] == 0.f)
+      write_mean_v<HD>(out + b * o_sb + (long long)(p0 + prow[r]) * o_ss +
+                           (long long)(gbase + hrow[r]) * o_sh + 2 * t4,
+                       v + b * v_sb + (long long)hk * v_sh + 2 * t4, v_ss, Skv);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a bf16 tensor of shape (B, S, H, hd) with element strides
+// (sb, ss, sh, 1): dims (hd, then H, S, B ordered by stride), box (64, box_h,
+// box_s, 1), 128-byte swizzle. *perm gets the slot of H, S and B.
+int make_map(CUtensorMap* map, const void* ptr, int hd, int H, int S, int B, long long sh,
+             long long ss, long long sb, int box_h, int box_s, int* perm) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  struct Dim {
+    cuuint64_t n, stride;
+    cuuint32_t box;
+    int which;
+  } d[3] = {{(cuuint64_t)H, (cuuint64_t)sh, (cuuint32_t)box_h, 0},
+            {(cuuint64_t)S, (cuuint64_t)ss, (cuuint32_t)box_s, 1},
+            {(cuuint64_t)B, (cuuint64_t)sb, 1u, 2}};
+  for (int i = 1; i < 3; ++i)  // by stride, stable
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, d[0].n, d[1].n, d[2].n};
+  const cuuint64_t strides[3] = {d[0].stride * 2, d[1].stride * 2, d[2].stride * 2};
+  const cuuint32_t box[4] = {64, d[0].box, d[1].box, d[2].box};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  int slot[3];
+  for (int i = 0; i < 3; ++i) slot[d[i].which] = i + 1;
+  *perm = slot[0] | (slot[1] << 2) | (slot[2] << 4);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, const void* kv_lens, int B,
-           int Sq, int Skv, int Hq, int Hkv, const long long* st, int q_offset, int causal,
-           int window, float scale, float softcap, cudaStream_t s) {
+           int Sq, int Skv, int Hq, int Hkv, int GP, const long long* st, int q_offset,
+           int causal, int window, float scale, float softcap, cudaStream_t s) {
+  using L = Smem<HD>;
   static bool attr_set = false;  // one opt-in per process for > 48 KB of shared memory
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Smem<HD>::bytes);
+        flash_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::alloc);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_prefill_kernel<HD><<<grid, kThreads, Smem<HD>::bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<const int32_t*>(kv_lens), Sq, Skv, Hkv, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], q_offset, causal, window, scale,
-      softcap);
+  const int G = Hq / Hkv;
+  const int npos = L::kRows / GP;
+  const int qbox_s = Sq < npos ? Sq : npos;
+  const int kv_box = Skv < kBN ? Skv : kBN;
+  CUtensorMap qm, km, vm;
+  int qp, kp, vp, err;
+  if ((err = make_map(&qm, q, HD, Hq, Sq, B, st[2], st[1], st[0], GP, qbox_s, &qp)) ||
+      (err = make_map(&km, k, HD, Hkv, Skv, B, st[5], st[4], st[3], 1, kv_box, &kp)) ||
+      (err = make_map(&vm, v, HD, Hkv, Skv, B, st[8], st[7], st[6], 1, kv_box, &vp)))
+    return err;
+  const dim3 grid((Sq + npos - 1) / npos, Hkv * (G / GP), B);
+  flash_prefill_kernel<HD><<<grid, 160, L::alloc, s>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(v), st[6],
+      st[7], st[8], static_cast<const int32_t*>(kv_lens), Sq,
+      Skv, G, GP, npos, qbox_s, kv_box, qp, kp, vp, st[9], st[10], st[11], q_offset, causal,
+      window, scale, softcap);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out, const void* kv_lens,
+              int B, int Sq, int Skv, int Hq, int Hkv, const long long* st, int q_offset,
+              int causal, int window, float scale, float softcap, cudaStream_t s) {
+  const int G = Hq / Hkv;
+  int GP = G < kMaxGP ? G : kMaxGP;  // the largest divisor of G up to kMaxGP
+  while (G % GP) --GP;
+  return launch<HD>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, GP, st, q_offset, causal, window,
+                    scale, softcap, s);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v and out in that
-// order; the head_dim stride is 1. Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// order; the head_dim stride is 1, and every other stride and base address is
+// a multiple of 16 bytes (TMA). Launches on `stream` and returns a CUDA error
+// code (0 = launched).
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v, void* out,
                                   const void* kv_lens, int B, int Sq, int Skv, int Hq, int Hkv,
                                   int hd, const long long* strides, int q_offset, int causal,
@@ -290,10 +559,10 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v, v
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 128)
-    return launch<128>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
-                       window, scale, softcap, s);
+    return launch_hd<128>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
+                          window, scale, softcap, s);
   if (hd == 64)
-    return launch<64>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
-                      window, scale, softcap, s);
+    return launch_hd<64>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
+                         window, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

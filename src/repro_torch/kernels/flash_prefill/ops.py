@@ -2,10 +2,10 @@
 
 Model layout in and out: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd). On a CUDA
 tensor the wrapper launches the hand-written kernel
-(``csrc/flash_prefill.cu``), which reads the layout through strides and takes
-``q_offset`` and the per-row ``kv_lens`` at run time, so nothing is padded or
-transposed here; on a CPU tensor it runs the plain version (``ref.py``).
-There is no fallback from one to the other.
+(``csrc/flash_prefill.cu``), which reads the layout through TMA tensor maps
+built over the strides and takes ``q_offset`` and the per-row ``kv_lens`` at
+run time, so nothing is padded or transposed here; on a CPU tensor it runs
+the plain version (``ref.py``). There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ def _check(q, k, v, kv_lens):
     if kv_lens.dtype != torch.int32 or tuple(kv_lens.shape) != (B,) \
             or not kv_lens.is_contiguous():
         raise ValueError("flash_attention: kv_lens must be a contiguous (B,) int32 tensor")
-    # 16-byte vector loads of each row
+    # TMA: unit-stride rows, every other stride and the base 16-byte aligned
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} rows must be unit-stride "

@@ -1,12 +1,12 @@
 """The port's attention kernels: plain versions against the JAX package's
 Pallas kernels (interpret mode, as tests/test_kernels.py runs them) and its
-oracles, on the same numpy-made inputs; and, on a card only, the CUDA kernels
-against their plain versions.
+oracles, on the same numpy-made inputs, and the paged decode split planner.
+The CUDA kernels against their plain versions, on a card only, are in
+tests/test_torch_kernels_cuda.py.
 
 Tolerances: f32 compares at 2e-5 (the kernel and the plain versions sum in
 other orders); bf16 at 2e-2 (the output's one bf16 rounding can land on
-either side). The CUDA check uses the same 2e-2: both sides compute in f32
-from the same bf16 inputs.
+either side).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +21,8 @@ from repro_torch.kernels import resolve_backend
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_attention_split_ref)
 
 # one intra-op thread: the suite runs several workers on few cores, and
 # torch's default pool (one thread per core) oversubscribes them
@@ -94,6 +95,59 @@ def test_paged_plain_ignores_table_entries_past_length():
     torch.testing.assert_close(out1, out2, atol=0, rtol=0)
 
 
+# (B, Hkv, P, page_size, num_sms): the runtime's bucket at short and long
+# contexts, one request, a batch that already fills the card, odd sizes
+PLAN_SHAPES = [(8, 4, 32, 16, 132), (8, 4, 64, 16, 132), (8, 4, 128, 16, 132),
+               (1, 4, 128, 16, 132), (64, 8, 4096, 16, 132), (3, 2, 5, 7, 20),
+               (1, 1, 1, 1, 132)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_paged_split_plan_covers_every_slot_once(shape):
+    """Every token slot of the table is in exactly one chunk, chunks are
+    whole ring tiles no larger than the kernel's page-id buffer, and the
+    plan is a function of the shapes alone (same inputs, same plan)."""
+    B, Hkv, P, page, sms = shape
+    chunk, splits = pa_ops.plan_splits(B, Hkv, P, page, sms)
+    assert (chunk, splits) == pa_ops.plan_splits(B, Hkv, P, page, sms)
+    assert chunk % pa_ops.TILE == 0 and 0 < chunk <= pa_ops.MAX_CHUNK
+    owner = np.zeros(P * page, np.int64)
+    for s in range(splits):
+        owner[s * chunk:(s + 1) * chunk] += 1
+    assert (owner == 1).all()
+    assert (splits - 1) * chunk < P * page      # no chunk lies wholly past the table
+    if B * Hkv < 2 * sms and P * page >= 2 * pa_ops.TILE:
+        assert splits > 1                         # a small batch is split to fill the card
+
+
+def test_paged_split_plan_at_the_runtime_shape():
+    """Bucket 8, Hkv 4, 64 pages of 16 on 132 SMs: 8 splits of 128 tokens,
+    256 blocks (about two per SM); a plan of one split when the batch alone
+    fills the card."""
+    assert pa_ops.plan_splits(8, 4, 64, 16, 132) == (128, 8)
+    assert pa_ops.plan_splits(8, 4, 32, 16, 132) == (64, 8)
+    assert pa_ops.plan_splits(64, 8, 4, 16, 132)[1] == 1
+
+
+@pytest.mark.parametrize("plan", [(32, 8), (64, 4), (256, 1), (96, 3)])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_paged_split_merge_matches_plain(plan, cap):
+    """Split-then-merge (the kernel's algorithm) over the planner's kind of
+    chunks equals the one-pass plain version within 2e-5 in f32, with empty
+    chunks (short rows), a row ending on a chunk boundary and a padded row
+    served from the trash page."""
+    chunk, splits = plan
+    B, Hq, Hkv, hd, page, P = 5, 28, 4, 128, 16, 16
+    q, kp, vp, tables, lengths = _paged_inputs(B, Hq, Hkv, hd, page, P, 40, 3, seed=11)
+    lengths[:] = [256, 64, 1, 1, 200]              # row 3 is the padded row (trash page 0)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tables, lengths)]
+    qg = args[0].reshape(B, Hkv, Hq // Hkv, hd)
+    want = paged_attention_ref(qg, *args[1:], logit_softcap=cap)
+    got = paged_attention_split_ref(qg, *args[1:], chunk=chunk, splits=splits,
+                                    logit_softcap=cap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
 FLASH_CASES = [
     # B, Sq, Skv, Hq, Hkv, hd, softcap
     (1, 128, 128, 28, 4, 128, 0.0),   # qwen2.5-7b head layout, G=7
@@ -161,34 +215,3 @@ def test_wrappers_count_no_launches_on_cpu():
     assert resolve_backend("ref", "cuda") == "ref"
     with pytest.raises(ValueError):
         resolve_backend("cuda", "cpu")
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    """Both CUDA kernels against their plain versions on the card (bf16, the
-    qwen2.5-7b head layout, ragged lengths, a padded row, kv_lens and
-    q_offset), and each launch counted once."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    dev = "cuda"
-    q, kp, vp, tables, lengths = _paged_inputs(8, 28, 4, 128, 16, 40, 400, 5, seed=0)
-    q, kp, vp = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, kp, vp))
-    tables, lengths = torch.from_numpy(tables).to(dev), torch.from_numpy(lengths).to(dev)
-    n = pa_ops.paged_attention.launches
-    got = pa_ops.paged_attention(q, kp, vp, tables, lengths, num_kv_heads=4)
-    want = paged_attention_ref(q.reshape(8, 4, 7, 128), kp, vp, tables,
-                               lengths).reshape(q.shape)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
-    assert pa_ops.paged_attention.launches == n + 1
-
-    g = torch.Generator(dev).manual_seed(0)
-    qf = torch.randn(2, 200, 28, 128, generator=g, device=dev).bfloat16()
-    kf = torch.randn(2, 264, 4, 128, generator=g, device=dev).bfloat16()
-    vf = torch.randn(2, 264, 4, 128, generator=g, device=dev).bfloat16()
-    lens = torch.tensor([264, 130], dtype=torch.int32, device=dev)
-    n = fp_ops.flash_attention.launches
-    got = fp_ops.flash_attention(qf, kf, vf, kv_lens=lens, q_offset=64)
-    want = flash_prefill_ref(qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
-                             kv_len=264, q_offset=64, kv_lens=lens).transpose(1, 2)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
-    assert fp_ops.flash_attention.launches == n + 1
