@@ -11,26 +11,43 @@
    trash-page row and lengths on the split planner's chunk boundaries;
    flash prefill at S in {8, 128, 512, 2048} with per-row kv_lens, a chunk
    at q_offset > 0, a sliding window, a softcap, rows that see no key and
-   hd 64), each max abs error beside its tolerance, and each wrapper call's
+   hd 64; and on chunk shapes: Sq in {16, 256, 512} over one request's K/V
+   gathered from a paged pool through its table, q_offset in {96, 200,
+   320}), each max abs error beside its tolerance, and each wrapper call's
    host syncs (must be 0). Then timings on CUDA events (``time_ms``):
    kernel, plain version, the least time the card could take (bound) and
    one PyTorch library call computing the same function (which the port
    never calls).
-3. Main path: full-width qwen2.5-7b (28 layers, bf16, seeded random
-   weights) served by the port's PoolRuntime in CoLocatedServer's
-   configuration (ooco, 1 strict + 1 relaxed engine, decode bucket 8, whole-
-   prompt prefill, one decode step per dispatch) on a few online and offline
-   requests. Every request must finish, both kernels must have launched, and
-   one prompt's logits through the kernels must agree with the plain path.
-4. Prints the kernel table as one JSON line (flash prefill at S=512 and at
-   S=2048, each row with its ratio to the library call), the card line
-   again, and last ``{"ok": true, "device": {...}}``.
+3. Phase 1: full-width qwen2.5-7b (28 layers, bf16, seeded random weights)
+   served by the port's PoolRuntime in CoLocatedServer's configuration
+   (ooco, 1 strict + 1 relaxed engine, decode bucket 8, whole-prompt
+   prefill, one decode step per dispatch) on a few online and offline
+   requests. Every request must finish, both kernels must have launched,
+   and one prompt's logits through the kernels must agree with the plain
+   path.
+4. Engine checks at full width: a 300-token prompt in chunks of 96 against
+   whole-prompt prefill and against the plain versions; a mixed step's 7
+   decode rows against ``decode_step`` from the same state; K=4 decode and
+   mixed horizons against 4 serial steps (tokens equal but for near-ties of
+   the serial logits, counted); a warm 256-token prefix against a cold one;
+   one host sync per mixed step and per horizon.
+5. Phase 2: the reference's default configuration (chunked prefill and
+   decode horizons ``auto``, prefix cache on) over the same weights, on the
+   same online trace plus an offline backlog with shared prefixes. Every
+   request must finish, with mixed steps, prefix hits, and both kernels
+   launched (flash at q_offset > 0 too). Then one mixed step and one K=4
+   horizon profiled.
+6. Prints the kernel table as one JSON line (flash prefill at S=512, at
+   S=2048 and on the chunk shape, each row with its ratio to the library
+   call and its launches by path), the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device the
 script exits 1 at once. It imports nothing of JAX and nothing of ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -217,7 +234,8 @@ def flash_case(B, Sq, Skv, *, Hq=28, Hkv=4, hd=128, seed=1):
     return q, k, v
 
 
-def check_flash(ops, ref) -> float:
+def check_flash(ops, ref) -> tuple[float, float]:
+    """Max abs errors of the whole-prompt cases and of the chunk cases."""
     import torch
     worst = 0.0
     # (B, Sq, Skv, q_offset, kv_lens, window, softcap, Hq, Hkv, hd): whole
@@ -252,7 +270,47 @@ def check_flash(ops, ref) -> float:
     syncs = count_syncs(lambda: ops.flash_attention(q, k, v, kv_lens=lens))
     print(f"host syncs per flash prefill call: {len(syncs)} {syncs}")
     check(not syncs, f"the flash prefill wrapper synchronized: {syncs}")
-    return worst
+    # the chunk side of a mixed step: C query rows (c real) at q_offset over
+    # a request's pages gathered from a paged pool through its table, which
+    # is padded with the trash page 0 to cp pages; kv_lens = q_offset + c.
+    # No q_offset is a multiple of the 64-row query tile.
+    whole, worst = worst, 0.0
+    for Sq, c, cp, off in CHUNK_CASES:
+        q, k, v, lens = chunk_case(Sq, c, cp, off)
+        out = ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off)
+        want = ref.flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), kv_len=k.shape[1],
+                                     q_offset=off, kv_lens=lens).transpose(1, 2)
+        err = compare(f"flash prefill chunk Sq={Sq} c={c} Skv={cp * 16} (cp={cp}) "
+                      f"q_offset={off} kv_lens={off + c}", out, want)
+        worst = max(worst, err)
+    return whole, worst
+
+
+#: chunk-side shapes (Sq bucket, real rows c, pages cp of 16, q_offset)
+CHUNK_CASES = [(16, 13, 8, 96), (16, 9, 32, 200), (16, 15, 64, 320),
+               (256, 30, 8, 96), (256, 192, 32, 320), (256, 130, 64, 200),
+               (512, 190, 32, 320), (512, 300, 64, 200), (512, 500, 64, 320)]
+
+
+def chunk_case(Sq, c, cp, off, *, Hq=28, Hkv=4, hd=128, page=16, seed=2):
+    """q (1, Sq, Hq, hd) and the K/V of one request gathered from a random
+    paged pool: the pages that hold ``off + c`` tokens, drawn without
+    replacement from pages >= 1, then the trash page 0 up to ``cp`` pages,
+    as the engine's ``PagedKVCache.gather_pages`` lays them out."""
+    import torch
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    num_pages = 2 * cp + 1
+    kp = torch.randn(num_pages, page, Hkv, hd, generator=g, device=DEVICE).bfloat16()
+    vp = torch.randn(num_pages, page, Hkv, hd, generator=g, device=DEVICE).bfloat16()
+    used = -(-(off + c) // page)
+    table = torch.zeros(cp, dtype=torch.long, device=DEVICE)
+    table[:used] = torch.randperm(num_pages - 1, generator=g, device=DEVICE)[:used] + 1
+    q = torch.randn(1, Sq, Hq, hd, generator=g, device=DEVICE).bfloat16()
+    k = kp[table].reshape(1, cp * page, Hkv, hd)
+    v = vp[table].reshape(1, cp * page, Hkv, hd)
+    lens = torch.tensor([off + c], dtype=torch.int32, device=DEVICE)
+    return q, k, v, lens
 
 
 def time_paged(ops, ref, flush, B=8, ctx=512) -> dict:
@@ -316,6 +374,41 @@ def time_flash(ops, ref, flush, S) -> dict:
             "bound_by": b_by, "library_ms": t_lib}
 
 
+def time_flash_chunk(ops, ref, flush, Sq=256, c=192, cp=32, off=320) -> dict:
+    """The chunk side of a mixed step: the second chunk of a 512-token prompt
+    (C=256 with c=192 real rows at q_offset 320 over 512 gathered keys,
+    kv_len 512). The library call is SDPA with a boolean mask over the same
+    gathered K/V."""
+    import torch
+    import torch.nn.functional as F
+    Hq, Hkv, hd = 28, 4, 128
+    q, k, v, lens = chunk_case(Sq, c, cp, off)
+    Skv, kv_len = k.shape[1], off + c
+    compare(f"flash prefill chunk Sq={Sq} c={c} q_offset={off} Skv={Skv} (timed inputs)",
+            ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off),
+            ref.flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  kv_len=Skv, q_offset=off, kv_lens=lens).transpose(1, 2))
+    t_kernel = time_ms(lambda: ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off),
+                       20, flush)
+    t_plain = time_ms(lambda: ref.flash_prefill_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len=Skv,
+        q_offset=off, kv_lens=lens), 5, flush)
+    qi = torch.arange(Sq, device=DEVICE)[:, None]
+    kj = torch.arange(Skv, device=DEVICE)[None]
+    mask = (kj <= off + qi) & (kj < kv_len)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 20, flush)
+    nbytes = 2 * (2 * Sq * Hq * hd + 2 * Skv * Hkv * hd) + 4   # q, out, K, V, kv_lens
+    flops = 4 * int(mask.sum()) * Hq * hd                 # the pairs the mask keeps
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"flash prefill chunk Sq={Sq} c={c} q_offset={off} Skv={Skv}: kernel "
+          f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, SDPA with a boolean mask "
+          f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": t_lib}
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -354,7 +447,8 @@ def logits_agree(model, params, cfg) -> None:
     check(rel <= LOGITS_REL_TOL, f"full-width logits disagree: {rel}")
 
 
-def main_path(fp_ops, pa_ops, cfg) -> dict:
+def main_path(fp_ops, pa_ops, cfg):
+    """Phase 1: the co-located configuration (``CoLocatedServer``'s)."""
     import torch
     from repro_torch.cluster.runtime import PoolRuntime, WallClock
     from repro_torch.core.hardware import H100_SXM
@@ -439,7 +533,7 @@ def main_path(fp_ops, pa_ops, cfg) -> dict:
     for toks in rt.tokens.values():
         check(all(0 <= t < cfg.vocab_size for t in toks), "token id out of range")
     profile_engine(rt.relaxed_pool[0].engine, cfg)
-    return launches
+    return launches, model, params, rt.kernel_donor, rt.pm
 
 
 def profile_engine(eng, cfg) -> None:
@@ -486,24 +580,361 @@ def profile_engine(eng, cfg) -> None:
         torch.cuda.synchronize()
     for r in rids:
         eng.release(r)
-    for what, prof, wall, n in (("prefill of 512 tokens", prof_p, t_prefill, 1),
-                                ("decode step, B=8, context ~512", prof_d, t_decode, 4)):
-        ev = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and "CUDA" in str(e.device_type)]
-        busy = {e.key: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
-                for e in ev}
-        total = sum(busy.values())
-        launched = sum(e.count for e in ev) / n
-        print(f"{what}: host wall {wall:.3f} ms per call (no profiler); device "
-              f"busy {total:.3f} ms per call ({100 * total / wall:.1f}% of the wall "
-              f"time, {100 - 100 * total / wall:.1f}% idle); {launched:.0f} kernels "
-              f"per call")
-        top = sorted(busy.items(), key=lambda kv: -kv[1])
-        ours = [kv for kv in top[6:] if "paged_decode" in kv[0] or "flash_prefill" in kv[0]]
-        for key, ms in top[:6] + ours:
-            print(f"  {ms:8.3f} ms  {100 * ms / max(total, 1e-9):5.1f}%  {key[:90]}")
+    report_profile("prefill of 512 tokens", prof_p, t_prefill, 1)
+    report_profile("decode step, B=8, context ~512", prof_d, t_decode, 4)
+
+
+def report_profile(what, prof, wall, n) -> float:
+    """Device busy time per call from a torch.profiler run over ``n`` calls
+    (the sum of its kernel times), beside the host wall time per call, and
+    the kernels that take most of it. Returns the busy ms per call."""
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) is not None
+          and "CUDA" in str(e.device_type)]
+    busy = {e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
+            for e in ev}
+    total = sum(busy.values())
+    launched = sum(e.count for e in ev) / n
+    print(f"{what}: host wall {wall:.3f} ms per call (no profiler); device "
+          f"busy {total:.3f} ms per call ({100 * total / wall:.1f}% of the wall "
+          f"time, {100 - 100 * total / wall:.1f}% idle); {launched:.0f} kernels "
+          f"per call")
+    top = sorted(busy.items(), key=lambda kv: -kv[1])
+    ours = [kv for kv in top[6:] if "paged_decode" in kv[0] or "flash_prefill" in kv[0]]
+    for key, ms in top[:6] + ours:
+        print(f"  {ms:8.3f} ms  {100 * ms / max(total, 1e-9):5.1f}%  {key[:90]}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the engine's chunked, fused and horizon paths at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_logits(model):
+    """Every logits row block the model computes while the block runs."""
+    seen = []
+    orig = model._logits
+    model._logits = lambda params, x: seen.append(orig(params, x).float()) or seen[-1]
+    try:
+        yield seen
+    finally:
+        del model._logits
+
+
+def rel_err(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def margin_excused(logits, tok_serial, tok_fused) -> bool:
+    """The margin rule: a token that differs from the serial run's is
+    excused only where the serial top-2 logit margin is below 1e-2 of the
+    largest logit (a near-tie the summation order may flip)."""
+    top2 = logits.topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    ok = margin < 1e-2 * logits.abs().max().item()
+    print(f"    token {tok_fused} vs serial {tok_serial}: serial top-2 margin "
+          f"{margin:.4f} ({'excused' if ok else 'NOT a near-tie'})")
+    return ok
+
+
+def compare_streams(what, serial_logits, serial_toks, fused_toks, rows, diverged):
+    """Per row, fused tokens against serial ones under the margin rule; a
+    row is compared up to its first excused step only (its inputs differ
+    after it). Returns the number of excused steps."""
+    excused = 0
+    for i, r in enumerate(rows):
+        if r in diverged:
+            continue
+        for t, (a, b) in enumerate(zip(serial_toks[r], fused_toks[r])):
+            if a != b:
+                check(margin_excused(serial_logits[t][i], a, b),
+                      f"{what}: row {i} step {t} differs from serial")
+                excused += 1
+                diverged.add(r)
+                break
+    return excused
+
+
+def engine_checks(model, params, cfg) -> None:
+    """At full width, on engines of their own: chunked prefill against whole
+    prefill and against the plain versions; a mixed step's decode rows
+    against ``decode_step``; K=4 decode and mixed horizons against 4 serial
+    steps; a warm prefix against a cold one; one host sync per dispatch."""
+    import torch
+    from repro_torch.core.request import Kind, Request
+    from repro_torch.core.scheduling import split_chunk
+    from repro_torch.engine.engine import ServingEngine
+
+    g = torch.Generator().manual_seed(13)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    def engine(backend="auto", prefix_cache=False):
+        return ServingEngine(model, params, num_pages=256, decode_buckets=(8,),
+                             backend=backend, prefix_cache=prefix_cache, device=DEVICE)
+
+    def add(eng, toks, out=64):
+        r = Request(Kind.OFFLINE, 0.0, len(toks), out)
+        eng.add_request(r, toks)
+        return r.rid
+
+    def chunked(eng, rid, chunk=96):
+        """Land a prompt through chunk-only mixed steps; returns the offsets
+        and the first-token logits."""
+        offsets = []
+        with recorded_logits(model) as seen:
+            while eng.requests[rid].generated == 0:
+                offsets.append(eng.prefill_progress(rid))
+                eng.mixed_step([], rid, chunk)
+        return offsets, seen[-1][0]
+
+    # 1. a 300-token prompt in chunks of 96 against whole-prompt prefill,
+    #    and against the same chunks on the plain versions
+    p300 = prompt(300)
+    eng = engine()
+    with recorded_logits(model) as seen:
+        eng.prefill(add(eng, p300))
+    whole = seen[-1][0]
+    engine_k = engine()
+    offsets, chunk_k = chunked(engine_k, add(engine_k, p300))
+    engine_r = engine("ref")
+    _, chunk_r = chunked(engine_r, add(engine_r, p300))
+    del eng, engine_k, engine_r
+    check(offsets == [0, 96, 192, 288], f"chunk offsets {offsets}")
+    for name, a, b in (("chunked vs whole-prompt prefill", chunk_k, whole),
+                       ("chunked, kernels vs plain versions", chunk_k, chunk_r)):
+        rel = rel_err(a, b)
+        print(f"full-width first-token logits of a 300-token prompt, {name} (chunks "
+              f"of 96 at offsets {offsets}): max abs err / max |logit| = {rel:.3e} "
+              f"(tol {LOGITS_REL_TOL}), argmax {int(a.argmax())} vs {int(b.argmax())}")
+        check(rel <= LOGITS_REL_TOL, f"{name}: logits disagree ({rel})")
+
+    # 2. a mixed step's 7 decode rows against decode_step from the same state:
+    #    decode_step's logits first (its K/V writes are the mixed step's own,
+    #    same values into the same slots)
+    lens8 = [40, 100, 177, 256, 300, 333, 420, 500]
+    prompts8 = [prompt(n) for n in lens8]
+    serial, fused = engine(), engine()
+    rows_s = [add(serial, p) for p in prompts8]
+    rows_f = [add(fused, p) for p in prompts8]
+    for e, rows in ((serial, rows_s), (fused, rows_f)):
+        for r in rows:
+            e.prefill(r)
+    dec7 = rows_f[:7]
+    pf = add(fused, prompt(384), 8)
+    _, _, *args = fused._decode_args(dec7)
+    with torch.inference_mode():
+        step_logits = fused._decode_logits(*fused._upload_decode(*args))[:7].float()
+    with recorded_logits(model) as seen:
+        syncs = count_syncs(lambda: fused.mixed_step(dec7, pf, 96))
+    mixed_logits = seen[0][:7]
+    diff = (mixed_logits - step_logits).abs().max().item()
+    same = mixed_logits.argmax(-1).tolist() == step_logits.argmax(-1).tolist()
+    print(f"mixed step (7 decode rows + a 96-token chunk) vs decode_step from the "
+          f"same state: max logit difference {diff} (0 by construction), tokens "
+          f"{'equal' if same else 'DIFFER'}; host syncs {len(syncs)} {syncs}")
+    check(same, "a mixed step's decode rows disagree with decode_step")
+    check(len(syncs) == 1, f"a mixed step made {len(syncs)} host syncs, not 1")
+    # the other engine takes the same step, so both hold the same state
+    pf_s = add(serial, fused.token_buf[pf][:384], 8)
+    serial.mixed_step(rows_s[:7], pf_s, 96)
+
+    # 3. K=4 horizons against 4 serial steps, under the margin rule
+    diverged, excused = set(), 0
+    with recorded_logits(model) as seen:
+        before = {r: len(serial.token_buf[r]) for r in rows_s}
+        for _ in range(4):
+            serial.decode_step(rows_s)
+    s_toks = {r: serial.token_buf[r][before[r]:] for r in rows_s}
+    out = {}
+    syncs = count_syncs(lambda: out.update(fused.decode_horizon(rows_f, 4)))
+    f_toks = {rs: out[rf] for rs, rf in zip(rows_s, rows_f)}
+    print(f"decode horizon K=4, B=8 vs 4 serial decode steps: host syncs "
+          f"{len(syncs)} {syncs}")
+    check(len(syncs) == 1, f"a decode horizon made {len(syncs)} host syncs, not 1")
+    excused += compare_streams("decode horizon", seen, s_toks, f_toks, rows_s, diverged)
+    pf2 = prompt(384)
+    ps, pfh = add(serial, pf2, 8), add(fused, pf2, 8)
+    with recorded_logits(model) as seen:
+        before = {r: len(serial.token_buf[r]) for r in rows_s}
+        for sub in split_chunk(96, 4):
+            serial.mixed_step(rows_s, ps, sub)
+    s_toks = {r: serial.token_buf[r][before[r]:] for r in rows_s}
+    dec_logits = seen[0::2]                    # decode rows, then the chunk row
+    out = {}
+    syncs = count_syncs(lambda: out.update(fused.mixed_horizon(rows_f, pfh, 96, 4)))
+    f_toks = {rs: out[rf] for rs, rf in zip(rows_s, rows_f)}
+    print(f"mixed horizon K=4 (8 decode rows + a 96-token chunk in 4 slices) vs 4 "
+          f"serial mixed steps: host syncs {len(syncs)} {syncs}")
+    check(len(syncs) == 1, f"a mixed horizon made {len(syncs)} host syncs, not 1")
+    check(fused.prefill_progress(pfh) == serial.prefill_progress(ps) == 96,
+          "the mixed horizon landed another share of the chunk")
+    excused += compare_streams("mixed horizon", dec_logits, s_toks, f_toks, rows_s,
+                               diverged)
+    print(f"horizons vs serial steps: tokens equal except {excused} step(s) excused "
+          f"by the margin rule")
+    del serial, fused
+
+    # 4. a prompt that shares a 256-token prefix with an earlier one, warm
+    #    (claimed from the prefix cache) against cold
+    prefix = prompt(256)
+    pa, pb = prefix + prompt(44), prefix + prompt(60)
+    warm, cold = engine(prefix_cache=True), engine()
+    chunked(warm, add(warm, pa))
+    _, warm_logits = chunked(warm, add(warm, pb))
+    _, cold_logits = chunked(cold, add(cold, pb))
+    st = warm.stats
+    rel = rel_err(warm_logits, cold_logits)
+    print(f"warm prefix (256 tokens claimed, the 60-token suffix at q_offset 256) vs "
+          f"cold: max abs err / max |logit| = {rel:.3e} (tol {LOGITS_REL_TOL}); "
+          f"prefix_hits {st.prefix_hits}, cached_tokens {st.cached_tokens}")
+    check(rel <= LOGITS_REL_TOL, f"warm vs cold logits disagree ({rel})")
+    check(st.prefix_hits == 1 and st.cached_tokens == 256, "the prefix was not claimed")
+    del warm, cold
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the default configuration
+# ---------------------------------------------------------------------------
+
+def default_path(fp_ops, pa_ops, cfg, model, params, donor, pm) -> dict:
+    """Phase 2: the reference's default serving configuration (chunked
+    prefill and horizons ``auto``, prefix cache on) over the first phase's
+    weights, on a backlog with shared prefixes."""
+    import torch
+    from repro_torch.cluster.runtime import PoolRuntime, WallClock
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.request import Kind, Request
+    from repro_torch.data import traces as tr
+    from repro_torch.engine.engine import EngineStats
+
+    rt = PoolRuntime(cfg, policy="ooco", n_strict=1, n_relaxed=1,
+                     clock=WallClock(), hw=H100_SXM, decode_buckets=(8,),
+                     chunk_tokens="auto", decode_horizon="auto", prefix_cache=True,
+                     num_pages=1024, page_size=16, slo_ttft=2.0, slo_tpot=0.05,
+                     seed=0, device=DEVICE, model=model, params=params,
+                     kernels_from=donor)
+    del donor    # the last engine of phase 1: its pools go now
+    torch.cuda.empty_cache()
+    # same model and hardware model as phase 1: its bs_sat memo carries over
+    rt.pm._bs_sat_cache = pm._bs_sat_cache
+    print(f"phase 2 runtime built; torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    # warm-up outside the measured run (cuBLAS shapes of the chunk buckets,
+    # mixed steps and horizons), then the engines start clean: no stats,
+    # nothing in the prefix trees
+    g = torch.Generator().manual_seed(17)
+    for slot in rt.strict_pool + rt.relaxed_pool:
+        eng = slot.engine
+        rows = []
+        for n in (8, 16, 32, 64, 128, 256, 512):
+            req = Request(Kind.OFFLINE, 0.0, n, 16)
+            eng.add_request(req, torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist())
+            eng.mixed_step(rows[:7], req.rid, n)
+            rows.append(req.rid)
+        eng.decode_horizon(rows[:8], 4)
+        req = Request(Kind.OFFLINE, 0.0, 512, 4)
+        eng.add_request(req, torch.randint(0, cfg.vocab_size, (512,), generator=g).tolist())
+        eng.mixed_horizon(rows[:7], req.rid, 320, 4)
+        eng.mixed_step(rows[:7], req.rid, 192)
+        for r in rows + [req.rid]:
+            eng.release(r)
+        eng.cache.prefix.release_all()
+        eng.stats = EngineStats()
+    torch.cuda.synchronize()
+
+    online = tr.online_trace("ooc", duration=6.0, mean_qps=1.0, seed=0)
+    shared = tr.shared_prefix_requests(
+        num_prefixes=2, variants=1, queries=3, prefix_tokens=256, variant_tokens=64,
+        query_tokens=64, output_len=32, vocab=cfg.vocab_size, seed=5)
+    ooc = tr.offline_requests(8, seed=1)
+    backlog = [r for pair in zip(shared, ooc) for r in pair] + ooc[len(shared):]
+    offline = tr.with_uniform_qps(backlog, 2.0)
+    fp_ops.flash_attention.launches = 0
+    fp_ops.flash_attention.offset_launches = 0
+    pa_ops.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    summary = rt.run(online, offline, duration=6.0, max_prompt=512, max_output=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_prefill": fp_ops.flash_attention.launches,
+                "flash_prefill_at_offset": fp_ops.flash_attention.offset_launches,
+                "paged_attention": pa_ops.paged_attention.launches}
+    print("phase 2 summary " + json.dumps(summary, sort_keys=True))
+    n_req = summary["online_requests"] + summary["offline_requests"]
+    n_fin = summary["online_finished"] + summary["offline_finished"]
+    print(f"phase 2 requests finished: {n_fin}/{n_req} in {wall:.2f} s wall")
+    print(f"phase 2 online TTFT p50 {summary['online_ttft_p50']} s, p99 "
+          f"{summary['online_ttft_p99']} s; TPOT p50 {summary['online_tpot_p50']} s, "
+          f"p99 {summary['online_tpot_p99']} s; attainment "
+          f"{summary['online_slo_attainment']}; offline "
+          f"{summary['offline_tokens_per_s']:.2f} tokens/s")
+    print(f"phase 2 dispatches {summary['dispatches_by_kind']}; horizon rounds "
+          f"{summary['horizon_rounds']}, mixed-horizon rounds "
+          f"{summary['mixed_horizon_rounds']}, horizon steps {summary['horizon_steps']}; "
+          f"chunks {summary['chunks']}, chunk preemptions {summary['chunk_preemptions']}; "
+          f"prefix hits {summary['prefix_hits']}, cached tokens "
+          f"{summary['cached_tokens']}; migrations {summary['migrations']}, pulls "
+          f"{summary['pulls']}")
+    print(f"phase 2 kernel launches: {launches}")
+    check(n_req > 0 and n_fin == n_req, f"phase 2: only {n_fin}/{n_req} requests finished")
+    check(summary["dispatches_by_kind"]["mixed"] > 0, "phase 2 ran no mixed step")
+    check(summary["prefix_hits"] > 0, "phase 2 claimed no cached prefix")
+    for name, n in launches.items():
+        check(n > 0, f"phase 2: {name} never launched")
+    for toks in rt.tokens.values():
+        check(all(0 <= t < cfg.vocab_size for t in toks), "token id out of range")
+    profile_fused(rt.relaxed_pool[0].engine, cfg)
+    return launches
+
+
+def profile_fused(eng, cfg) -> None:
+    """One full-width mixed step (7 decode rows at context ~512 plus a
+    256-token chunk) and one K=4 decode horizon (B=8): host wall time per
+    call without the profiler, then the device's busy time under it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.request import Kind, Request
+
+    g = torch.Generator().manual_seed(19)
+
+    def add(n, out):
+        r = Request(Kind.OFFLINE, 0.0, n, out)
+        eng.add_request(r, torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist())
+        return r.rid
+
+    rows = [add(512, 64) for _ in range(8)]
+    for r in rows:
+        eng.mixed_step([], r, 512)
+    pending = [add(512, 4) for _ in range(4)]
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    it = iter(pending)
+    t_mixed = timed(lambda: eng.mixed_step(rows[:7], next(it), 256), 3)
+    with profile(activities=acts) as prof_m:
+        eng.mixed_step(rows[:7], next(it), 256)
+        torch.cuda.synchronize()
+    t_horizon = timed(lambda: eng.decode_horizon(rows, 4), 2)
+    with profile(activities=acts) as prof_h:
+        eng.decode_horizon(rows, 4)
+        torch.cuda.synchronize()
+    for r in rows + pending:
+        eng.release(r)
+    report_profile("mixed step, 7 decode rows at context ~512 + a 256-token chunk",
+                   prof_m, t_mixed, 1)
+    report_profile("decode horizon K=4, B=8, context ~512", prof_h, t_horizon, 1)
 
 
 def _leaves(tree):
@@ -538,28 +969,44 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     paged_err = check_paged(pa_ops, pa_ref)
-    flash_err = check_flash(fp_ops, fp_ref)
+    flash_err, chunk_err = check_flash(fp_ops, fp_ref)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     paged_t = time_paged(pa_ops, pa_ref, flush)
     flash_t = time_flash(fp_ops, fp_ref, flush, 512)
     flash_long_t = time_flash(fp_ops, fp_ref, flush, 2048)
+    chunk_t = time_flash_chunk(fp_ops, fp_ref, flush)
     del flush
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config
-    launches = main_path(fp_ops, pa_ops, get_config("qwen2.5-7b"))
+    cfg = get_config("qwen2.5-7b")
+    colocated, model, params, donor, pm = main_path(fp_ops, pa_ops, cfg)
+    engine_checks(model, params, cfg)
+    default = default_path(fp_ops, pa_ops, cfg, model, params, donor, pm)
+    del donor
+    # launches by path: phase 1 (co-located: whole prompts) and phase 2
+    # (default configuration: every prompt through chunks)
+    paged_n = {"colocated": colocated["paged_attention"],
+               "default": default["paged_attention"]}
     paged = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
              "replaces": "src/repro/kernels/paged_attention/kernel.py:72",
-             "launches": launches["paged_attention"], "max_abs_err": paged_err}
+             "launches": sum(paged_n.values()), "launches_by_path": paged_n,
+             "max_abs_err": paged_err}
     flash = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "replaces": "src/repro/kernels/flash_prefill/kernel.py:86",
-             "launches": launches["flash_prefill"], "max_abs_err": flash_err}
+             "launches": colocated["flash_prefill"], "max_abs_err": flash_err}
     kernels = [
         {"name": "paged_attention", "shape": "B=8 ctx=512", **paged, **paged_t},
-        {"name": "flash_prefill", "shape": "B=1 S=512", **flash, **flash_t},
+        {"name": "flash_prefill", "shape": "B=1 S=512", "use": "whole prompt",
+         **flash, **flash_t},
         # prompts are clipped to 512 tokens on the main path: no launch at S=2048
-        {"name": "flash_prefill (S=2048)", "shape": "B=1 S=2048", **flash,
-         "launches": 0, **flash_long_t},
+        {"name": "flash_prefill (S=2048)", "shape": "B=1 S=2048", "use": "whole prompt",
+         **flash, "launches": 0, **flash_long_t},
+        {"name": "flash_prefill (chunk)",
+         "shape": "B=1 C=256 c=192 q_offset=320 Skv=512 kv_len=512", "use": "chunk",
+         **flash, "launches": default["flash_prefill"],
+         "launches_at_q_offset": default["flash_prefill_at_offset"],
+         "max_abs_err": chunk_err, **chunk_t},
     ]
     for k in kernels:
         k["x_library"] = k["ms"] / k["library_ms"]

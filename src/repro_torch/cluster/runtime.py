@@ -299,13 +299,8 @@ def _validate_runtime_args(*, policy, n_strict, n_relaxed, slo_ttft, slo_tpot,
 
 
 class PoolRuntime:
-    """N-strict + M-relaxed co-located serving over real engines.
-
-    The port serves the co-located configuration (``CoLocatedServer``'s):
-    whole-prompt layer-interruptible prefill (``chunk_tokens=0``) and one
-    decode step per dispatch (``decode_horizon=1``), which are therefore the
-    defaults here. Chunked prefill and horizons are ROADMAP queue 1. Engines
-    run on ``device`` (a CUDA card unless the caller passes ``"cpu"``)."""
+    """N-strict + M-relaxed co-located serving over real engines, which run
+    on ``device`` (a CUDA card unless the caller passes ``"cpu"``)."""
 
     def __init__(self, cfg, *, policy: str = "ooco", n_strict: int = 1,
                  n_relaxed: int = 1, clock=None, slo_ttft: float = 4.0,
@@ -315,7 +310,7 @@ class PoolRuntime:
                  decode_buckets: tuple[int, ...] = (8,),
                  relaxed_decode_cap: int = 16,
                  gating_horizon: float = 20.0,
-                 chunk_tokens: int | str | None = 0,
+                 chunk_tokens: int | str | None = "auto",
                  decode_horizon: int | str | None = 1,
                  max_horizon: int = 16,
                  fault_plan=None, chaos_seed: int = 0,
@@ -335,14 +330,6 @@ class PoolRuntime:
             max_transfer_attempts=max_transfer_attempts,
             max_offline_backlog=max_offline_backlog,
             max_online_queue=max_online_queue)
-        if chunk_tokens not in (None, 0, "0"):
-            raise NotImplementedError(
-                f"chunk_tokens={chunk_tokens!r}: chunked prefill is not ported "
-                "yet (ROADMAP queue 1, item 1); use 0")
-        if decode_horizon not in (None, 0, 1, "0", "1"):
-            raise NotImplementedError(
-                f"decode_horizon={decode_horizon!r}: decode horizons are not "
-                "ported yet (ROADMAP queue 1, item 2); use 1")
         device = require_device(device)
         self.cfg = cfg
         self.policy = policy

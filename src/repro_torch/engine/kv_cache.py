@@ -419,6 +419,33 @@ class PagedKVCache:
         self.k_pool[idx] = self.store(k)
         self.v_pool[idx] = self.store(v)
 
+    def write_layer(self, li: int, page_ids, offs, k, v) -> None:
+        """Write one layer's K/V rows in place: row i of k/v (n, Hkv, hd)
+        lands at (page_ids[i], offs[i]) of layer ``li``. Rows that must not
+        touch live state (bucket padding, masked horizon rows, padded chunk
+        rows) carry page 0, the reserved trash page."""
+        self.k_pool[li, page_ids, offs] = self.store(k)
+        self.v_pool[li, page_ids, offs] = self.store(v)
+
+    def chunk_index(self, rid: int, start: int, c: int, C: int) -> tuple[np.ndarray, np.ndarray]:
+        """Host (page id, offset) of a prefill chunk's ``C`` bucketed rows at
+        positions ``[start, start + C)``: the ``c`` real rows land in rid's
+        pages, which must already cover ``start + c`` tokens; the padded rows
+        land in the trash page 0."""
+        pos = start + np.arange(C)
+        table = np.asarray(self.tables[rid], np.int64)
+        pages = np.zeros(C, np.int64)
+        pages[:c] = table[pos[:c] // self.page_size]
+        return pages, pos % self.page_size
+
+    def gather_pages(self, li: int, table) -> tuple[torch.Tensor, torch.Tensor]:
+        """One request's pages of layer ``li`` as contiguous K and V in the
+        model layout, (1, len(table) * page_size, Hkv, hd): what the chunk
+        side's flash attention reads (a gather, never a view of the pool).
+        ``table`` is a (cp,) int64 tensor, padded with page 0."""
+        shape = (1, -1, *self.k_pool.shape[3:])
+        return self.k_pool[li, table].reshape(shape), self.v_pool[li, table].reshape(shape)
+
     def batch_tables(self, rids: list[int], pad_to: int | None = None) -> np.ndarray:
         """Dense (B, P) int32 table for a decode batch (padded with page 0 —
         masked out by lengths in the attention)."""

@@ -88,7 +88,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if err:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.offset_launches += q_offset > 0
     return out
 
 
 flash_attention.launches = 0
+flash_attention.offset_launches = 0   # launches at q_offset > 0 (chunks past the first)

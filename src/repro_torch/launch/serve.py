@@ -7,9 +7,7 @@ points (§3.4) routed through the roofline perf model, and a pluggable clock
 (same seed → bit-identical token streams and metrics JSON).
 
 Engines run on a CUDA card by default (``--device cuda``); ``--device cpu``
-runs them on the CPU with the plain attention versions. The port serves the
-co-located configuration only: ``--chunk-tokens 0`` and
-``--decode-horizon 1`` (ROADMAP queue 1 ports the rest).
+runs them on the CPU with the plain attention versions.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-7b \
@@ -28,11 +26,6 @@ from repro_torch.cluster.runtime import (POLICIES, PoolRuntime, VirtualClock,
 from repro_torch.configs import get_config
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.data import traces as tr
-
-#: the only values this slice serves, with the ROADMAP item that ports the rest
-SERVED = {"--chunk-tokens": (0, "ROADMAP queue 1, item 1 (chunked prefill)"),
-          "--decode-horizon": (1, "ROADMAP queue 1, item 2 (decode horizons)")}
-
 
 def write_json_atomic(path: str, blob: str) -> None:
     """Write via a same-directory temp file + ``os.replace`` so a crash
@@ -148,14 +141,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--virtual-clock", action="store_true",
                     help="deterministic trace replay: time advances by the "
                          "perf model instead of the wall clock")
-    ap.add_argument("--chunk-tokens", default=0,
+    ap.add_argument("--chunk-tokens", default="auto",
                     type=_auto_or_nonneg_int("--chunk-tokens"),
                     help="chunked-prefill token budget per fused mixed "
                          "step: 'auto' picks it from the roofline ridge "
                          "(PerfModel.suggest_chunk_tokens), N fixes it, "
                          "0 disables chunking (legacy whole-prompt prefill "
                          "with layer-level interruption)")
-    ap.add_argument("--decode-horizon", default=1,
+    ap.add_argument("--decode-horizon", default="auto",
                     type=_auto_or_nonneg_int("--decode-horizon"),
                     help="multi-step decode horizon on latency-relaxed "
                          "rounds: 'auto' picks K from the decode roofline "
@@ -220,12 +213,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    for flag, (served, item) in SERVED.items():
-        if getattr(args, flag[2:].replace("-", "_")) != served:
-            ap.error(f"{flag} {served} is the only value ported so far; "
-                     f"the rest is {item}")
+    args = build_parser().parse_args(argv)
 
     cfg = get_config(args.arch).reduced()
     clock = VirtualClock() if args.virtual_clock else WallClock()

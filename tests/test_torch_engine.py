@@ -188,6 +188,9 @@ def test_pools_are_written_in_place(built):
 
 
 def test_sampling_is_seeded_and_the_unported_paths_raise(built):
+    """Seeded sampling repeats itself. The chunked and horizon entry points,
+    stubs that raised until the port's third slice, now run on the CPU (their
+    parity with the reference is in tests/test_torch_{chunked,horizon}.py)."""
     tc = built[3]
     prompt = _prompts(tc.vocab_size, (11,), seed=9)
     streams = []
@@ -201,6 +204,13 @@ def test_sampling_is_seeded_and_the_unported_paths_raise(built):
         streams.append(eng.token_buf[r].tolist())
     assert streams[0] == streams[1]
     assert all(0 <= t < tc.vocab_size for t in streams[0])
-    for name in ("mixed_step", "decode_horizon", "mixed_horizon"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(eng, name)([r])
+    d, pf = _admit(eng, _prompts(tc.vocab_size, (9, 20), seed=10), out_len=20)
+    eng.prefill(d)
+    assert eng.max_horizon_for([d], 3) == 3
+    assert len(eng.decode_horizon([d], 3)[d]) == 3
+    assert eng.max_mixed_horizon_for([d], pf, 8, 4) == 4
+    assert list(eng.mixed_step([d], pf, 8)) == [d]
+    assert len(eng.mixed_horizon([d], pf, 8, 4)[d]) == 4
+    assert eng.prefill_progress(pf) == 16
+    assert eng.stats.dispatches_by_kind == {"prefill": 2, "decode": 4, "mixed": 1,
+                                            "horizon": 1, "mixed_horizon": 1}

@@ -85,3 +85,33 @@ def test_cuda_kernels_match_plain_versions():
                                  logit_softcap=cap).transpose(1, 2)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
         assert fp_ops.flash_attention.launches == n + 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernel_on_chunk_shapes():
+    """The flash kernel on the chunk side of a mixed step: C query rows (c of
+    them real) at a q_offset that is no multiple of the query tile, over one
+    request's K/V gathered from a paged pool through its table (padded with
+    the trash page 0 to cp pages), kv_lens = q_offset + c."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev, page, Hkv, hd = "cuda", 16, 4, 128
+    g = torch.Generator(dev).manual_seed(1)
+    for Sq, c, cp, off in ((16, 13, 8, 96), (256, 192, 32, 320), (256, 130, 64, 200),
+                           (512, 300, 64, 200), (512, 500, 64, 320)):
+        npages = 2 * cp + 1
+        kp = torch.randn(npages, page, Hkv, hd, generator=g, device=dev).bfloat16()
+        vp = torch.randn(npages, page, Hkv, hd, generator=g, device=dev).bfloat16()
+        used = -(-(off + c) // page)
+        table = torch.zeros(cp, dtype=torch.long, device=dev)
+        table[:used] = torch.randperm(npages - 1, generator=g, device=dev)[:used] + 1
+        k = kp[table].reshape(1, cp * page, Hkv, hd)
+        v = vp[table].reshape(1, cp * page, Hkv, hd)
+        q = torch.randn(1, Sq, 28, hd, generator=g, device=dev).bfloat16()
+        lens = torch.tensor([off + c], dtype=torch.int32, device=dev)
+        n = fp_ops.flash_attention.launches
+        got = fp_ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off)
+        want = flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 kv_len=cp * page, q_offset=off, kv_lens=lens).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+        assert fp_ops.flash_attention.launches == n + 1

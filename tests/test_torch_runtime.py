@@ -114,10 +114,11 @@ def test_entry_points_require_a_card_unless_asked_for_cpu(built, monkeypatch):
         PoolRuntime(tc, model=tm, params=tp)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(tm, tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoolRuntime(tc, model=tm, params=tp, device="cpu", chunk_tokens="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoolRuntime(tc, model=tm, params=tp, device="cpu", decode_horizon=4)
+    # the reference's defaults (chunked prefill "auto", prefix cache on)
+    # and any horizon run on the CPU when asked for
+    rt = PoolRuntime(tc, model=tm, params=tp, device="cpu", decode_horizon=4)
+    assert rt.chunked and rt.chunk_budget is None and rt.prefix_cache
+    assert rt.horizon_req == 4
 
 
 def _serve(*args):
@@ -127,10 +128,15 @@ def _serve(*args):
 
 
 def test_serve_cli_runs_on_cpu_and_refuses_unported_knobs():
-    out = _serve("--device", "cpu", "--virtual-clock", "--duration", "5")
-    assert out.returncode == 0, out.stderr
-    summary = json.loads(out.stdout)
-    assert summary["clock"] == "virtual" and summary["online_requests"] > 0
-    assert summary["online_finished"] == summary["online_requests"]
-    bad = _serve("--device", "cpu", "--virtual-clock", "--chunk-tokens", "8")
-    assert bad.returncode == 2 and "ROADMAP" in bad.stderr and "usage" in bad.stderr
+    """The CLI serves the reference's defaults (chunked prefill and horizons
+    "auto") and fixed knobs on the CPU, and refuses a malformed knob."""
+    for knobs in ((), ("--chunk-tokens", "8", "--decode-horizon", "4")):
+        out = _serve("--device", "cpu", "--virtual-clock", "--duration", "5", *knobs)
+        assert out.returncode == 0, out.stderr
+        summary = json.loads(out.stdout)
+        assert summary["clock"] == "virtual" and summary["online_requests"] > 0
+        assert summary["online_finished"] == summary["online_requests"]
+        assert summary["offline_finished"] == summary["offline_requests"] > 0
+        assert summary["chunks"] > 0
+    bad = _serve("--device", "cpu", "--virtual-clock", "--chunk-tokens", "-8")
+    assert bad.returncode == 2 and "usage" in bad.stderr
