@@ -14,10 +14,12 @@
    hd 64; and on chunk shapes: Sq in {16, 256, 512} over one request's K/V
    gathered from a paged pool through its table, q_offset in {96, 200,
    320}), each max abs error beside its tolerance, and each wrapper call's
-   host syncs (must be 0). Then timings on CUDA events (``time_ms``):
-   kernel, plain version, the least time the card could take (bound) and
-   one PyTorch library call computing the same function (which the port
-   never calls).
+   host syncs (must be 0). The same again at granite-moe-3b-a800m's heads
+   (24 query heads over 8 KV heads, hd 64): the paged cases, whole prompts
+   at S 128 and 512, every chunk case. Then timings on CUDA events
+   (``time_ms``) at both models' heads: kernel, plain version, the least
+   time the card could take (bound) and one PyTorch library call computing
+   the same function (which the port never calls).
 3. Phase 1: full-width qwen2.5-7b (28 layers, bf16, seeded random weights)
    served by the port's PoolRuntime in CoLocatedServer's configuration
    (ooco, 1 strict + 1 relaxed engine, decode bucket 8, whole-prompt
@@ -37,10 +39,22 @@
    request must finish, with mixed steps, prefix hits, and both kernels
    launched (flash at q_offset > 0 too). Then one mixed step and one K=4
    horizon profiled.
-6. Prints the kernel table as one JSON line (flash prefill at S=512, at
-   S=2048 and on the chunk shape, each row with its ratio to the library
-   call and its launches by path), the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+6. Phase 3: full-width granite-moe-3b-a800m (32 layers, 40 experts top-8,
+   bf16, seeded random weights), its pools and weights taking the place of
+   phases 1-2's: kernels vs plain logits with the share of routing choices
+   that differ; a mixed step's decode rows bit-equal to ``decode_step``'s
+   and K=4 horizons (every row alive) token-equal to 4 serial steps; then
+   the default configuration behind the live ``Gateway``, served through
+   ``repro_torch.launch.api``'s HTTP handler on an ephemeral port to HTTP
+   clients: phase 2's online trace and offline backlog as streamed
+   ``/v1/generate`` calls, one ``/v1/cancel``, the api's selftest, then a
+   drain. Every stream ends in exactly one outcome, finished streams carry
+   the runtime's tokens, no page leaks, both kernels launch. The client's
+   TTFT and time per token print beside the runtime's own.
+7. Prints the kernel table as one JSON line (flash prefill at S=512, at
+   S=2048 and on the chunk shape, and the granite rows, each row with its
+   ratio to the library call and its launches by path), the card line
+   again, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device the
 script exits 1 at once. It imports nothing of JAX and nothing of ``repro``.
@@ -66,6 +80,16 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM data sheet
 # (2^-9 relative on weights that sum to 1, over |V| of a few units).
 ATOL, RTOL = 1e-2, 2.0 ** -7
 LOGITS_REL_TOL = 5e-2  # kernels vs plain versions through 28 bf16 layers
+# The MoE model (granite-moe-3b-a800m, 32 layers, 40 experts top-8): one bf16
+# difference in a router logit can swap a token's 8th expert for its 9th, a
+# discrete change of about 1/8 of that token's MoE output, which later layers
+# carry on. So the kernels-vs-plain comparison reports the share of routing
+# choices (real token, layer, expert) that differ and gates it, and its
+# logits tolerance allows for such swaps on the decoded token's path.
+MOE_LOGITS_REL_TOL = 5e-2   # the dense limit; the H100 run read 1.03e-2
+MOE_ROUTING_TOL = 0.05      # the H100 run read 0.97% of the choices
+QWEN_HEADS = (28, 4, 128)     # qwen2.5-7b: Hq, Hkv, hd (G = 7)
+GRANITE_HEADS = (24, 8, 64)   # granite-moe-3b-a800m: Hq, Hkv, hd (G = 3)
 DEVICE = "cuda"
 
 
@@ -96,6 +120,30 @@ def compare(name: str, out, want) -> float:
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def reset_launches(fp_ops, pa_ops) -> None:
+    """Every kernel's launch count to 0, and the whole-prompt share of the
+    flash count (``attention.attn_prefill`` reads it off the wrapper's)."""
+    from repro_torch.models import attention
+    fp_ops.flash_attention.launches = 0
+    fp_ops.flash_attention.offset_launches = 0
+    pa_ops.paged_attention.launches = 0
+    attention.attn_prefill.flash_launches.clear()
+
+
+def read_launches(fp_ops, pa_ops) -> dict:
+    """The counts since ``reset_launches``: flash launches split into whole
+    prompts (by length) and chunks (at q_offset > 0 counted apart too)."""
+    from repro_torch.models import attention
+    whole = {s: n for s, n in attention.attn_prefill.flash_launches.items() if n}
+    n_whole = sum(whole.values())
+    return {"flash_prefill": fp_ops.flash_attention.launches,
+            "flash_prefill_whole_prompt": n_whole,
+            "flash_prefill_whole_prompt_by_len": whole,
+            "flash_prefill_chunk": fp_ops.flash_attention.launches - n_whole,
+            "flash_prefill_at_offset": fp_ops.flash_attention.offset_launches,
+            "paged_attention": pa_ops.paged_attention.launches}
 
 
 def count_syncs(fn) -> list[str]:
@@ -187,7 +235,7 @@ def paged_case(B, lengths, *, Hq=28, Hkv=4, hd=128, page=16, trash_row=None,
     return q, kp, vp, tables.contiguous(), lens
 
 
-def check_paged(ops, ref, softcap_cases=(0.0, 50.0)) -> float:
+def check_paged(ops, ref, softcap_cases=(0.0, 50.0), heads=QWEN_HEADS) -> float:
     """The main path's plans first: bucket 8 with tables padded to 32 and to
     64 pages (contexts up to 512 and up to 1024; 8 splits of 64 and of 128
     tokens), ragged, with a padded row. Then ragged lengths 1..2048; lengths
@@ -196,30 +244,32 @@ def check_paged(ops, ref, softcap_cases=(0.0, 50.0)) -> float:
     and the merge all run; and short contexts (two pages), where the planner
     takes one chunk, as for the main path's short prompts."""
     import torch
+    Hq, Hkv, hd = heads
     worst = 0.0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chunk, splits = ops.plan_splits(8, 4, 2048 // 16, 16, sms)
-    print(f"paged decode plan at B=8, 128 pages of 16: chunk {chunk} tokens, "
-          f"{splits} splits, {8 * 4 * splits} blocks on {sms} SMs")
+    chunk, splits = ops.plan_splits(8, Hkv, 2048 // 16, 16, sms)
+    print(f"paged decode plan at B=8, heads {Hq}/{Hkv}, 128 pages of 16: chunk {chunk} "
+          f"tokens, {splits} splits, {8 * Hkv * splits} blocks on {sms} SMs")
     boundary = [chunk - 1, chunk, chunk + 1, 2 * chunk, 5, 2048, 1, 3 * chunk + 1]
     cases = [(8, [512, 300, 497, 1, 64, 65, 511, 129], 3, 32),
              (8, [540, 512, 129, 1, 128, 1000, 257, 33], 3, 64),
              (1, [2048], None, None), (8, [1, 17, 100, 512, 1000, 2048, 5, 777], 6, None),
              (8, boundary, 6, None), (8, [5, 30, 17, 32, 1, 9, 31, 2], 6, None)]
     for B, lengths, trash, P in cases:
-        q, kp, vp, tables, lens = paged_case(B, lengths, trash_row=trash, P=P)
+        q, kp, vp, tables, lens = paged_case(B, lengths, trash_row=trash, P=P,
+                                             Hq=Hq, Hkv=Hkv, hd=hd)
         print(f"paged decode plan at B={B}, {tables.shape[1]} pages: "
-              f"{ops.plan_splits(B, 4, tables.shape[1], 16, sms)} (chunk, splits)")
+              f"{ops.plan_splits(B, Hkv, tables.shape[1], 16, sms)} (chunk, splits)")
         for cap in softcap_cases:
-            out = ops.paged_attention(q, kp, vp, tables, lens, num_kv_heads=4,
+            out = ops.paged_attention(q, kp, vp, tables, lens, num_kv_heads=Hkv,
                                       logit_softcap=cap)
-            want = ref.paged_attention_ref(q.reshape(B, 4, 7, 128), kp, vp, tables,
+            want = ref.paged_attention_ref(q.reshape(B, Hkv, Hq // Hkv, hd), kp, vp, tables,
                                            lens, logit_softcap=cap).reshape(q.shape)
-            err = compare(f"paged decode B={B} P={tables.shape[1]} lengths={lengths} "
-                          f"softcap={cap}", out, want)
+            err = compare(f"paged decode heads={Hq}/{Hkv} hd={hd} B={B} P={tables.shape[1]} "
+                          f"lengths={lengths} softcap={cap}", out, want)
             worst = max(worst, err)
     syncs = count_syncs(lambda: ops.paged_attention(q, kp, vp, tables, lens,
-                                                    num_kv_heads=4))
+                                                    num_kv_heads=Hkv))
     print(f"host syncs per paged decode call: {len(syncs)} {syncs}")
     check(not syncs, f"the paged decode wrapper synchronized: {syncs}")
     return worst
@@ -245,7 +295,7 @@ def check_flash(ops, ref) -> tuple[float, float]:
     # chunk whose Sq is no multiple of the query tile; the two together on a
     # ragged row whose last queries see no key (past kv_lens + window: the
     # plain version gives them the mean of V); and hd 64 with G = 2
-    qwen = (28, 4, 128)
+    qwen = QWEN_HEADS
     cases = [(1, 8, 8, 0, [8], 0, 0.0, *qwen)]
     cases += [(2, S, S, 0, [S, S // 2 + 3], 0, 0.0, *qwen) for S in (128, 512, 2048)]
     cases += [(1, 128, 512, 384, [512], 0, 0.0, *qwen),
@@ -270,21 +320,53 @@ def check_flash(ops, ref) -> tuple[float, float]:
     syncs = count_syncs(lambda: ops.flash_attention(q, k, v, kv_lens=lens))
     print(f"host syncs per flash prefill call: {len(syncs)} {syncs}")
     check(not syncs, f"the flash prefill wrapper synchronized: {syncs}")
-    # the chunk side of a mixed step: C query rows (c real) at q_offset over
-    # a request's pages gathered from a paged pool through its table, which
-    # is padded with the trash page 0 to cp pages; kv_lens = q_offset + c.
-    # No q_offset is a multiple of the 64-row query tile.
-    whole, worst = worst, 0.0
+    return worst, check_flash_chunks(ops, ref)
+
+
+def check_flash_chunks(ops, ref, heads=QWEN_HEADS) -> float:
+    """The chunk side of a mixed step: C query rows (c real) at q_offset over
+    a request's pages gathered from a paged pool through its table, which is
+    padded with the trash page 0 to cp pages; kv_lens = q_offset + c. No
+    q_offset is a multiple of the 64-row query tile. Max abs error; a call
+    makes no host sync."""
+    Hq, Hkv, hd = heads
+    worst = 0.0
     for Sq, c, cp, off in CHUNK_CASES:
-        q, k, v, lens = chunk_case(Sq, c, cp, off)
+        q, k, v, lens = chunk_case(Sq, c, cp, off, heads=heads)
         out = ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off)
         want = ref.flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), kv_len=k.shape[1],
                                      q_offset=off, kv_lens=lens).transpose(1, 2)
-        err = compare(f"flash prefill chunk Sq={Sq} c={c} Skv={cp * 16} (cp={cp}) "
-                      f"q_offset={off} kv_lens={off + c}", out, want)
+        err = compare(f"flash prefill chunk heads={Hq}/{Hkv} hd={hd} Sq={Sq} c={c} "
+                      f"Skv={cp * 16} (cp={cp}) q_offset={off} kv_lens={off + c}", out, want)
         worst = max(worst, err)
-    return whole, worst
+    syncs = count_syncs(lambda: ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off))
+    print(f"host syncs per flash prefill chunk call at heads {Hq}/{Hkv} hd {hd}: "
+          f"{len(syncs)} {syncs}")
+    check(not syncs, f"the flash prefill wrapper synchronized on a chunk: {syncs}")
+    return worst
+
+
+def check_flash_heads(ops, ref, heads) -> tuple[float, float]:
+    """Flash prefill at another model's heads: whole prompts at S 128 and 512
+    with a ragged row, then every chunk case. Max abs errors of each group;
+    each wrapper call makes no host sync."""
+    import torch
+    Hq, Hkv, hd = heads
+    errs = []
+    for S in (128, 512):
+        q, k, v = flash_case(2, S, S, Hq=Hq, Hkv=Hkv, hd=hd)
+        lens = torch.tensor([S, S // 2 + 3], dtype=torch.int32, device=DEVICE)
+        out = ops.flash_attention(q, k, v, kv_lens=lens)
+        want = ref.flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     kv_len=S, kv_lens=lens).transpose(1, 2)
+        errs.append(compare(f"flash prefill heads={Hq}/{Hkv} hd={hd} B=2 S={S} "
+                            f"kv_lens={lens.tolist()}", out, want))
+    syncs = count_syncs(lambda: ops.flash_attention(q, k, v, kv_lens=lens))
+    print(f"host syncs per flash prefill call at heads {Hq}/{Hkv} hd {hd}: "
+          f"{len(syncs)} {syncs}")
+    check(not syncs, f"the flash prefill wrapper synchronized: {syncs}")
+    return max(errs), check_flash_chunks(ops, ref, heads)
 
 
 #: chunk-side shapes (Sq bucket, real rows c, pages cp of 16, q_offset)
@@ -293,12 +375,13 @@ CHUNK_CASES = [(16, 13, 8, 96), (16, 9, 32, 200), (16, 15, 64, 320),
                (512, 190, 32, 320), (512, 300, 64, 200), (512, 500, 64, 320)]
 
 
-def chunk_case(Sq, c, cp, off, *, Hq=28, Hkv=4, hd=128, page=16, seed=2):
+def chunk_case(Sq, c, cp, off, *, heads=QWEN_HEADS, page=16, seed=2):
     """q (1, Sq, Hq, hd) and the K/V of one request gathered from a random
     paged pool: the pages that hold ``off + c`` tokens, drawn without
     replacement from pages >= 1, then the trash page 0 up to ``cp`` pages,
     as the engine's ``PagedKVCache.gather_pages`` lays them out."""
     import torch
+    Hq, Hkv, hd = heads
     g = torch.Generator(DEVICE).manual_seed(seed)
     num_pages = 2 * cp + 1
     kp = torch.randn(num_pages, page, Hkv, hd, generator=g, device=DEVICE).bfloat16()
@@ -313,13 +396,13 @@ def chunk_case(Sq, c, cp, off, *, Hq=28, Hkv=4, hd=128, page=16, seed=2):
     return q, k, v, lens
 
 
-def time_paged(ops, ref, flush, B=8, ctx=512) -> dict:
-    """The runtime's decode shape: bucket 8, context 512, qwen2.5-7b heads.
+def time_paged(ops, ref, flush, B=8, ctx=512, heads=QWEN_HEADS) -> dict:
+    """The runtime's decode shape: bucket 8, context 512, the model's heads.
     The timed call's output is held against the plain version first."""
     import torch
     import torch.nn.functional as F
-    q, kp, vp, tables, lens = paged_case(B, [ctx] * B)
-    Hq, hd, Hkv = 28, 128, 4
+    Hq, Hkv, hd = heads
+    q, kp, vp, tables, lens = paged_case(B, [ctx] * B, Hq=Hq, Hkv=Hkv, hd=hd)
     compare(f"paged decode B={B} ctx={ctx} (timed inputs)",
             ops.paged_attention(q, kp, vp, tables, lens, num_kv_heads=Hkv),
             ref.paged_attention_ref(q.reshape(B, Hkv, Hq // Hkv, hd), kp, vp, tables,
@@ -343,7 +426,7 @@ def time_paged(ops, ref, flush, B=8, ctx=512) -> dict:
               + tables.numel() * 4 + B * 4)
     flops = 4 * int(lengths.sum()) * Hq * hd             # QK^T and PV
     b_ms, b_by = bound(nbytes, flops)
-    print(f"paged decode B={B} ctx={ctx}: kernel {t_kernel:.4f} ms, plain "
+    print(f"paged decode heads={Hq}/{Hkv} hd={hd} B={B} ctx={ctx}: kernel {t_kernel:.4f} ms, plain "
           f"{t_plain:.4f} ms, SDPA on a pre-gathered cache {t_lib:.4f} ms "
           f"(gather excluded), bound {b_ms:.4f} ms ({b_by}); grid {B}x{Hkv}x{splits} = "
           f"{B * Hkv * splits} blocks of {chunk} tokens on {sms} SMs")
@@ -351,12 +434,12 @@ def time_paged(ops, ref, flush, B=8, ctx=512) -> dict:
             "bound_by": b_by, "library_ms": t_lib}
 
 
-def time_flash(ops, ref, flush, S) -> dict:
-    """Whole-prompt prefill: B=1, prompt bucket S, qwen2.5-7b heads."""
+def time_flash(ops, ref, flush, S, heads=QWEN_HEADS) -> dict:
+    """Whole-prompt prefill: B=1, prompt bucket S, the model's heads."""
     import torch
     import torch.nn.functional as F
-    Hq, Hkv, hd = 28, 4, 128
-    q, k, v = flash_case(1, S, S)
+    Hq, Hkv, hd = heads
+    q, k, v = flash_case(1, S, S, Hq=Hq, Hkv=Hkv, hd=hd)
     lens = torch.tensor([S], dtype=torch.int32, device=DEVICE)
     t_kernel = time_ms(lambda: ops.flash_attention(q, k, v, kv_lens=lens), 20, flush)
     t_plain = time_ms(lambda: ref.flash_prefill_ref(
@@ -368,21 +451,23 @@ def time_flash(ops, ref, flush, S) -> dict:
     nbytes = 2 * (2 * S * Hq * hd + 2 * S * Hkv * hd)    # q, out, K, V
     flops = 4 * (S * (S + 1) // 2) * Hq * hd             # causal pairs
     b_ms, b_by = bound(nbytes, flops)
-    print(f"flash prefill S={S}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+    print(f"flash prefill heads={Hq}/{Hkv} hd={hd} S={S}: kernel {t_kernel:.4f} ms, "
+          f"plain {t_plain:.4f} ms, "
           f"SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": t_lib}
 
 
-def time_flash_chunk(ops, ref, flush, Sq=256, c=192, cp=32, off=320) -> dict:
+def time_flash_chunk(ops, ref, flush, Sq=256, c=192, cp=32, off=320,
+                     heads=QWEN_HEADS) -> dict:
     """The chunk side of a mixed step: the second chunk of a 512-token prompt
     (C=256 with c=192 real rows at q_offset 320 over 512 gathered keys,
     kv_len 512). The library call is SDPA with a boolean mask over the same
     gathered K/V."""
     import torch
     import torch.nn.functional as F
-    Hq, Hkv, hd = 28, 4, 128
-    q, k, v, lens = chunk_case(Sq, c, cp, off)
+    Hq, Hkv, hd = heads
+    q, k, v, lens = chunk_case(Sq, c, cp, off, heads=heads)
     Skv, kv_len = k.shape[1], off + c
     compare(f"flash prefill chunk Sq={Sq} c={c} q_offset={off} Skv={Skv} (timed inputs)",
             ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off),
@@ -402,7 +487,8 @@ def time_flash_chunk(ops, ref, flush, Sq=256, c=192, cp=32, off=320) -> dict:
     nbytes = 2 * (2 * Sq * Hq * hd + 2 * Skv * Hkv * hd) + 4   # q, out, K, V, kv_lens
     flops = 4 * int(mask.sum()) * Hq * hd                 # the pairs the mask keeps
     b_ms, b_by = bound(nbytes, flops)
-    print(f"flash prefill chunk Sq={Sq} c={c} q_offset={off} Skv={Skv}: kernel "
+    print(f"flash prefill chunk heads={Hq}/{Hkv} hd={hd} Sq={Sq} c={c} q_offset={off} "
+          f"Skv={Skv}: kernel "
           f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, SDPA with a boolean mask "
           f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
@@ -413,38 +499,75 @@ def time_flash_chunk(ops, ref, flush, Sq=256, c=192, cp=32, off=320) -> dict:
 # main path
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def recorded_routing(S: int, bucket: int = 8):
+    """The top-k expert ids of every real token in every MoE call while the
+    block runs: the first ``S`` rows of a prompt bucket, the first row of a
+    decode bucket of ``bucket`` rows."""
+    from repro_torch.models import moe as moe_lib
+    seen = []
+    orig = moe_lib._route
+
+    def route(p, x, k):
+        out = orig(p, x, k)
+        seen.append(out[2][0, : 1 if x.shape[1] == bucket else S])
+        return out
+    moe_lib._route = route
+    try:
+        yield seen
+    finally:
+        moe_lib._route = orig
+
+
 def logits_agree(model, params, cfg) -> None:
     """One prompt at full width through a kernel engine and a plain-version
     engine (``backend="ref"``, asked for by name) over the same weights:
-    the next-token logits of a decode step on the same input token agree."""
+    the next-token logits of a decode step on the same input token agree
+    (an MoE model: within its own tolerance, and the share of its routing
+    choices that differ is reported and gated)."""
     import torch
     from repro_torch.core.request import Kind, Request
     from repro_torch.engine.engine import ServingEngine
 
-    prompt = torch.randint(0, cfg.vocab_size, (300,),
+    S = 300
+    prompt = torch.randint(0, cfg.vocab_size, (S,),
                            generator=torch.Generator().manual_seed(7)).tolist()
-    logits, tok = [], None
+    logits, routes, tok = [], [], None
     for backend in ("auto", "ref"):
         eng = ServingEngine(model, params, num_pages=64, decode_buckets=(8,),
                             backend=backend, device=DEVICE)
         req = Request(Kind.ONLINE, 0.0, len(prompt), 4)
         eng.add_request(req, prompt)
-        eng.prefill(req.rid)
-        _, _, tokens, positions, tables, lengths = eng._decode_args([req.rid])
-        tok = tokens[0] if tok is None else tok     # same input token on both
-        tokens[0] = tok
-        with torch.inference_mode():
-            out = eng._decode_logits(*(torch.as_tensor(a, device=DEVICE) for a in (
-                tokens.astype("int64"), positions.astype("int64"), tables, lengths)))
+        with recorded_routing(S) as seen:
+            eng.prefill(req.rid)
+            _, _, tokens, positions, tables, lengths = eng._decode_args([req.rid])
+            tok = tokens[0] if tok is None else tok     # same input token on both
+            tokens[0] = tok
+            with torch.inference_mode():
+                out = eng._decode_logits(*(torch.as_tensor(a, device=DEVICE) for a in (
+                    tokens.astype("int64"), positions.astype("int64"), tables, lengths)))
         logits.append(out[0].float())
+        routes.append(seen)
         eng.release(req.rid)
     ker, pln = logits
     check(bool(torch.isfinite(ker).all()), "kernel-path logits are not finite")
     rel = ((ker - pln).abs().max() / pln.abs().max()).item()
-    print(f"full-width logits, kernels vs plain versions: shape {tuple(ker.shape)}, "
-          f"max abs err / max |logit| = {rel:.3e} (tol {LOGITS_REL_TOL}), "
+    tol = MOE_LOGITS_REL_TOL if cfg.is_moe else LOGITS_REL_TOL
+    print(f"full-width logits of {cfg.name}, kernels vs plain versions: shape "
+          f"{tuple(ker.shape)}, max abs err / max |logit| = {rel:.3e} (tol {tol}), "
           f"argmax {int(ker.argmax())} vs {int(pln.argmax())}")
-    check(rel <= LOGITS_REL_TOL, f"full-width logits disagree: {rel}")
+    if cfg.is_moe:
+        rk, rp = routes
+        check(len(rk) == len(rp) == 2 * cfg.num_layers, f"{len(rk)} MoE calls recorded")
+        same = sum(int((a[:, :, None] == b[:, None, :]).any(-1).sum()) for a, b in zip(rk, rp))
+        total = sum(a.numel() for a in rk)
+        share = 1.0 - same / total
+        first = next((i for i, (a, b) in enumerate(zip(rk, rp)) if not torch.equal(a, b)), None)
+        print(f"  routing choices (real token, layer, expert) that differ: {total - same} of "
+              f"{total} = {share:.4f} (tol {MOE_ROUTING_TOL}); first MoE call that differs: "
+              f"{first} of {len(rk)} (prefill layers, then the decode step's)")
+        check(share <= MOE_ROUTING_TOL, f"routing differs in {share:.4f} of the choices")
+    check(rel <= tol, f"full-width logits disagree: {rel}")
 
 
 def main_path(fp_ops, pa_ops, cfg):
@@ -500,14 +623,12 @@ def main_path(fp_ops, pa_ops, cfg):
     online = tr.online_trace("ooc", duration=6.0, mean_qps=1.0, seed=0)
     offline = tr.with_uniform_qps(tr.offline_requests(8, seed=1), 2.0)
     torch.cuda.reset_peak_memory_stats()
-    fp_ops.flash_attention.launches = 0
-    pa_ops.paged_attention.launches = 0
+    reset_launches(fp_ops, pa_ops)
     t0 = time.perf_counter()
     summary = rt.run(online, offline, duration=6.0, max_prompt=512, max_output=32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_prefill": fp_ops.flash_attention.launches,
-                "paged_attention": pa_ops.paged_attention.launches}
+    launches = read_launches(fp_ops, pa_ops)
     print("summary " + json.dumps(summary, sort_keys=True))
     n_req = summary["online_requests"] + summary["offline_requests"]
     n_fin = summary["online_finished"] + summary["offline_finished"]
@@ -528,8 +649,8 @@ def main_path(fp_ops, pa_ops, cfg):
     print(f"torch.cuda.max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     check(n_req > 0 and n_fin == n_req, f"only {n_fin}/{n_req} requests finished")
-    for name, n in launches.items():
-        check(n > 0, f"{name} kernel never launched on the main path")
+    for name in ("flash_prefill", "paged_attention"):
+        check(launches[name] > 0, f"{name} kernel never launched on the main path")
     for toks in rt.tokens.values():
         check(all(0 <= t < cfg.vocab_size for t in toks), "token id out of range")
     profile_engine(rt.relaxed_pool[0].engine, cfg)
@@ -854,16 +975,12 @@ def default_path(fp_ops, pa_ops, cfg, model, params, donor, pm) -> dict:
     ooc = tr.offline_requests(8, seed=1)
     backlog = [r for pair in zip(shared, ooc) for r in pair] + ooc[len(shared):]
     offline = tr.with_uniform_qps(backlog, 2.0)
-    fp_ops.flash_attention.launches = 0
-    fp_ops.flash_attention.offset_launches = 0
-    pa_ops.paged_attention.launches = 0
+    reset_launches(fp_ops, pa_ops)
     t0 = time.perf_counter()
     summary = rt.run(online, offline, duration=6.0, max_prompt=512, max_output=32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_prefill": fp_ops.flash_attention.launches,
-                "flash_prefill_at_offset": fp_ops.flash_attention.offset_launches,
-                "paged_attention": pa_ops.paged_attention.launches}
+    launches = read_launches(fp_ops, pa_ops)
     print("phase 2 summary " + json.dumps(summary, sort_keys=True))
     n_req = summary["online_requests"] + summary["offline_requests"]
     n_fin = summary["online_finished"] + summary["offline_finished"]
@@ -884,8 +1001,8 @@ def default_path(fp_ops, pa_ops, cfg, model, params, donor, pm) -> dict:
     check(n_req > 0 and n_fin == n_req, f"phase 2: only {n_fin}/{n_req} requests finished")
     check(summary["dispatches_by_kind"]["mixed"] > 0, "phase 2 ran no mixed step")
     check(summary["prefix_hits"] > 0, "phase 2 claimed no cached prefix")
-    for name, n in launches.items():
-        check(n > 0, f"phase 2: {name} never launched")
+    for name in ("flash_prefill_chunk", "flash_prefill_at_offset", "paged_attention"):
+        check(launches[name] > 0, f"phase 2: {name} never launched")
     for toks in rt.tokens.values():
         check(all(0 <= t < cfg.vocab_size for t in toks), "token id out of range")
     profile_fused(rt.relaxed_pool[0].engine, cfg)
@@ -937,6 +1054,299 @@ def profile_fused(eng, cfg) -> None:
     report_profile("decode horizon K=4, B=8, context ~512", prof_h, t_horizon, 1)
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the MoE family behind the live gateway and the HTTP API
+# ---------------------------------------------------------------------------
+
+def moe_engine_checks(model, params, cfg) -> None:
+    """The comparisons that hold by construction under MoE capacity, at full
+    width on engines of their own: a mixed step's decode rows against
+    ``decode_step`` from the same state (same layer body, same bucket: bit
+    for bit), and a K=4 decode horizon against 4 serial steps with every row
+    alive for all 4 and the table width the same (equal tokens); one host
+    sync per decode step, mixed step and horizon."""
+    import torch
+    from repro_torch.core.request import Kind, Request
+    from repro_torch.engine.engine import ServingEngine
+
+    g = torch.Generator().manual_seed(23)
+
+    def add(eng, toks, out=64):
+        r = Request(Kind.OFFLINE, 0.0, len(toks), out)
+        eng.add_request(r, toks)
+        return r.rid
+
+    # contexts stay within 32 pages of 16 through the 4 steps: the serial
+    # steps and the horizon read one table width, so one split plan
+    lens8 = [40, 100, 177, 256, 300, 333, 420, 480]
+    prompts8 = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in lens8]
+    serial, fused = (ServingEngine(model, params, num_pages=512, decode_buckets=(8,),
+                                   device=DEVICE) for _ in range(2))
+    rows_s = [add(serial, p) for p in prompts8]
+    rows_f = [add(fused, p) for p in prompts8]
+    for e, rows in ((serial, rows_s), (fused, rows_f)):
+        for r in rows:
+            e.prefill(r)
+    syncs = count_syncs(lambda: serial.decode_step(rows_s))
+    fused.decode_step(rows_f)
+    check(len(syncs) == 1, f"an MoE decode step made {len(syncs)} host syncs, not 1")
+    dec7 = rows_f[:7]
+    p384 = torch.randint(0, cfg.vocab_size, (384,), generator=g).tolist()
+    pf = add(fused, p384, 8)
+    _, _, *args = fused._decode_args(dec7)
+    with torch.inference_mode():
+        step_logits = fused._decode_logits(*fused._upload_decode(*args))[:7].float()
+    with recorded_logits(model) as seen:
+        syncs = count_syncs(lambda: fused.mixed_step(dec7, pf, 96))
+    diff = (seen[0][:7] - step_logits).abs().max().item()
+    print(f"MoE mixed step (7 decode rows + a 96-token chunk) vs decode_step from the "
+          f"same state: max logit difference {diff} (gate: 0); host syncs {len(syncs)}")
+    check(diff == 0.0, f"an MoE mixed step's decode rows differ from decode_step by {diff}")
+    check(len(syncs) == 1, f"an MoE mixed step made {len(syncs)} host syncs, not 1")
+    serial.mixed_step(rows_s[:7], add(serial, p384, 8), 96)
+
+    before = {r: len(serial.token_buf[r]) for r in rows_s}
+    for _ in range(4):
+        serial.decode_step(rows_s)
+    s_toks = [serial.token_buf[r][before[r]:] for r in rows_s]
+    out = {}
+    syncs = count_syncs(lambda: out.update(fused.decode_horizon(rows_f, 4)))
+    f_toks = [out[r] for r in rows_f]
+    n_diff = sum(a != b for sa, fa in zip(s_toks, f_toks) for a, b in zip(sa, fa))
+    print(f"MoE decode horizon K=4, B=8 (all rows alive) vs 4 serial steps: {n_diff} of "
+          f"{sum(map(len, s_toks))} tokens differ (gate: 0); host syncs {len(syncs)}")
+    check(all(len(t) == 4 for t in f_toks), "a horizon row emitted fewer than 4 tokens")
+    check(n_diff == 0, "the MoE decode horizon differs from serial steps")
+    check(len(syncs) == 1, f"an MoE decode horizon made {len(syncs)} host syncs, not 1")
+    del serial, fused
+    torch.cuda.empty_cache()
+
+
+async def http_generate(host, port, spec, *, cancel_after_rid=False):
+    """One streamed ``POST /v1/generate`` as a client sees it: the rid, the
+    tokens, every ``done`` line, and the client's TTFT (request sent to first
+    token line) and mean time per later token. ``cancel_after_rid`` cancels
+    the request through ``POST /v1/cancel`` once its rid line arrives."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    body = json.dumps(spec).encode()
+    t0 = time.perf_counter()
+    writer.write(f"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                 f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    await writer.drain()
+    status = (await reader.readline()).decode().strip()
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    res = {"status": status, "rid": None, "tokens": [], "done": [], "cancel": None}
+    stamps = []
+    while line := await reader.readline():
+        msg = json.loads(line)
+        if "rid" in msg:
+            res["rid"] = msg["rid"]
+            if cancel_after_rid:
+                res["cancel"] = await http_json(host, port, "/v1/cancel", {"rid": msg["rid"]})
+        elif "token" in msg:
+            res["tokens"].append(msg["token"])
+            stamps.append(time.perf_counter())
+        elif "done" in msg:
+            res["done"].append(msg["done"])
+    writer.close()
+    await writer.wait_closed()
+    res["ttft"] = stamps[0] - t0 if stamps else None
+    res["tpot"] = (stamps[-1] - stamps[0]) / (len(stamps) - 1) if len(stamps) > 1 else None
+    return res
+
+
+async def http_json(host, port, path, obj):
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    body = json.dumps(obj).encode()
+    writer.write(f"POST {path} HTTP/1.1\r\nHost: x\r\nContent-Length: {len(body)}"
+                 f"\r\n\r\n".encode() + body)
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    return json.loads(data.split(b"\r\n\r\n", 1)[1])
+
+
+def gateway_path(fp_ops, pa_ops, cfg) -> dict:
+    """Phase 3: granite-moe-3b-a800m at full width and depth, served in the
+    default configuration (ooco, chunked prefill and horizons ``auto``,
+    prefix cache on) by a ``PoolRuntime`` on a wall clock behind the live
+    ``Gateway``, through ``repro_torch.launch.api``'s HTTP handler on an
+    ephemeral port, driven by HTTP clients."""
+    import asyncio
+    import numpy as np
+    import torch
+    from repro_torch.cluster.gateway import OUTCOMES, Gateway
+    from repro_torch.cluster.runtime import PoolRuntime, WallClock
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.request import Kind, Phase, Request
+    from repro_torch.data import traces as tr
+    from repro_torch.engine.engine import EngineStats
+    from repro_torch.launch import api
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    expert_bytes = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, {cfg.num_experts} "
+          f"experts top-{cfg.experts_per_token} of d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"tied embeddings {cfg.tie_embeddings}; {n_params / 1e9:.3f} B params "
+          f"({n_params * 2 / 1e9:.2f} GB bf16), seeded in {time.perf_counter() - t0:.1f} s")
+    print(f"expert weights read per MoE layer (dense over the experts): "
+          f"{expert_bytes / 1e6:.1f} MB; per decode step {cfg.num_layers * expert_bytes / 1e9:.2f} "
+          f"GB, {cfg.num_layers * expert_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms at the data "
+          f"sheet's memory rate")
+    logits_agree(model, params, cfg)
+    moe_engine_checks(model, params, cfg)
+
+    rt = PoolRuntime(cfg, policy="ooco", n_strict=1, n_relaxed=1, clock=WallClock(),
+                     hw=H100_SXM, decode_buckets=(8,), chunk_tokens="auto",
+                     decode_horizon="auto", prefix_cache=True, num_pages=1024,
+                     page_size=16, slo_ttft=2.0, slo_tpot=0.05, seed=0, device=DEVICE,
+                     model=model, params=params)
+    pool = rt.strict_pool[0].engine.cache
+    print(f"phase 3 KV pools per engine: {pool.num_pages} pages x {pool.page_size} tokens, "
+          f"{2 * pool.k_pool.numel() * pool.k_pool.element_size() / 1e9:.3f} GB; "
+          f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    # warm-up outside the measured run, then the engines start clean
+    g = torch.Generator().manual_seed(29)
+    for slot in rt.strict_pool + rt.relaxed_pool:
+        eng = slot.engine
+        rows = []
+        for n in (8, 16, 32, 64, 128, 256, 512):
+            req = Request(Kind.OFFLINE, 0.0, n, 16)
+            eng.add_request(req, torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist())
+            eng.mixed_step(rows[:7], req.rid, n)
+            rows.append(req.rid)
+        eng.decode_horizon(rows[:8], 4)
+        for r in rows:
+            eng.release(r)
+        eng.cache.prefix.release_all()
+        eng.stats = EngineStats()
+    t1 = time.perf_counter()
+    for b in range(1, 12):
+        rt.pm.compute_saturated_batch(1 << b)
+    print(f"phase 3 bs_sat memo for contexts up to 2048 filled in "
+          f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.synchronize()
+
+    # the traffic of phase 2, sent over HTTP: the online trace at its arrival
+    # times, and the offline backlog (shared prefixes and ooc requests)
+    rng = np.random.default_rng(0)
+
+    def tokens_of(t):
+        if t.tokens is not None:
+            return [int(x) for x in t.tokens[:512]]
+        n = int(np.clip(-(-t.prompt_len // 8) * 8, 8, 512))
+        return [int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+
+    online = tr.online_trace("ooc", duration=6.0, mean_qps=1.0, seed=0)
+    shared = tr.shared_prefix_requests(
+        num_prefixes=2, variants=1, queries=3, prefix_tokens=256, variant_tokens=64,
+        query_tokens=64, output_len=32, vocab=cfg.vocab_size, seed=5)
+    ooc = tr.offline_requests(8, seed=1)
+    backlog = [r for pair in zip(shared, ooc) for r in pair] + ooc[len(shared):]
+    offline = tr.with_uniform_qps(backlog, 2.0)
+    sends = sorted([(t.arrival, "online", tokens_of(t), min(t.output_len, 32)) for t in online]
+                   + [(t.arrival, "offline", tokens_of(t), min(t.output_len, 32))
+                      for t in offline], key=lambda e: e[0])
+
+    async def serve():
+        gw = Gateway(rt)
+        await gw.start()
+        server = await asyncio.start_server(lambda r, w: api._handle(gw, r, w), "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        print(f"phase 3 gateway listening on 127.0.0.1:{port}")
+        reset_launches(fp_ops, pa_ops)
+        start = time.perf_counter()
+
+        async def client(at, kind, toks, out):
+            await asyncio.sleep(max(0.0, at - (time.perf_counter() - start)))
+            res = await http_generate("127.0.0.1", port, {
+                "prompt": toks, "kind": kind, "max_new_tokens": out})
+            res["kind"] = kind
+            return res
+
+        async def cancelled_client():
+            await asyncio.sleep(1.0)
+            res = await http_generate("127.0.0.1", port, {
+                "prompt": tokens_of(tr.TraceRequest(0.0, 200, 0)), "kind": "online",
+                "max_new_tokens": 512}, cancel_after_rid=True)
+            res["kind"] = "cancel"
+            return res
+
+        results = await asyncio.gather(*(client(*e) for e in sends), cancelled_client())
+        await api._selftest(gw, "127.0.0.1", port)
+        wall = time.perf_counter() - start
+        server.close()
+        await server.wait_closed()
+        report = await gw.drain(timeout=120.0)
+        launches = read_launches(fp_ops, pa_ops)
+        return results, report, launches, wall, gw.crashed
+
+    rt.clock.reset()   # warm-up and the memo are start-up, not serving time
+    results, report, launches, wall, crashed = asyncio.run(serve())
+    check(crashed is None, f"the gateway's runtime thread failed: {crashed!r}")
+    summary = report["summary"]
+    print("phase 3 summary " + json.dumps(summary, sort_keys=True))
+    print(f"phase 3 drain: leaked pages {report['leaked_pages']}, released retained "
+          f"{report['released_retained']}, drained {report['drained']}; wall {wall:.2f} s "
+          f"from the first send to the end of the selftest")
+    outcomes = {}
+    for res in results:
+        check(res["status"].startswith("HTTP/1.1 200"), f"a stream answered {res['status']}")
+        check(len(res["done"]) == 1 and res["done"][0] in OUTCOMES,
+              f"stream of rid {res['rid']} ended with {res['done']}, not exactly one outcome")
+        outcomes[res["done"][0]] = outcomes.get(res["done"][0], 0) + 1
+        if res["done"][0] == "finished":
+            check(res["tokens"] == rt.generated_tokens(res["rid"]),
+                  f"rid {res['rid']}: streamed tokens differ from the runtime's")
+            check(all(0 <= t < cfg.vocab_size for t in res["tokens"]), "token id out of range")
+    cancel = next(r for r in results if r["kind"] == "cancel")
+    print(f"phase 3 streams: {len(results)} over HTTP, outcomes {outcomes}; /v1/cancel "
+          f"answered {cancel['cancel']}, that stream ended {cancel['done']} after "
+          f"{len(cancel['tokens'])} tokens")
+    check(cancel["cancel"] == {"rid": cancel["rid"], "cancelled": True}
+          and cancel["done"] == ["cancelled"], "the /v1/cancel request was not cancelled")
+    check(outcomes.get("finished", 0) == len(results) - 1, "a stream did not finish")
+    terminal = ([r.rid for r in rt.finished] + [r.rid for r in rt.cancelled]
+                + [r.rid for r in rt.shed] + [r.rid for r in rt.rejected])
+    check(sorted(terminal) == sorted(r.rid for r in rt.all_requests)
+          and all(r.phase in (Phase.FINISHED, Phase.CANCELLED) for r in rt.all_requests),
+          "a request did not end in exactly one terminal state")
+    check(all(v == 0 for v in report["leaked_pages"].values()),
+          f"pages leaked after the drain: {report['leaked_pages']}")
+    print(f"phase 3 kernel launches: {launches}")
+    for name in ("flash_prefill_chunk", "flash_prefill_at_offset", "paged_attention"):
+        check(launches[name] > 0, f"phase 3: {name} never launched")
+    for kind in ("online", "offline"):
+        mine = [r for r in results if r["kind"] == kind]
+        ttft = [r["ttft"] for r in mine if r["ttft"] is not None]
+        tpot = [r["tpot"] for r in mine if r["tpot"] is not None]
+        by_rid = {r.rid: r for r in rt.all_requests}
+        rt_ttft = [by_rid[r["rid"]].ttft() for r in mine]
+        print(f"phase 3 {kind} ({len(mine)} streams): TTFT p50 seen by the HTTP client "
+              f"{np.percentile(ttft, 50):.4f} s, p99 {np.percentile(ttft, 99):.4f} s; "
+              f"the runtime's own p50 {np.percentile(rt_ttft, 50):.4f} s; client time per "
+              f"later token p50 {np.percentile(tpot, 50) * 1e3:.2f} ms, p99 "
+              f"{np.percentile(tpot, 99) * 1e3:.2f} ms")
+    print(f"phase 3 runtime: online TTFT p50 {summary['online_ttft_p50']} s, p99 "
+          f"{summary['online_ttft_p99']} s; TPOT p50 {summary['online_tpot_p50']} s, p99 "
+          f"{summary['online_tpot_p99']} s; attainment {summary['online_slo_attainment']}; "
+          f"offline {summary['offline_tokens_per_s']:.2f} tokens/s; dispatches "
+          f"{summary['dispatches_by_kind']}; horizon rounds {summary['horizon_rounds']}; "
+          f"prefix hits {summary['prefix_hits']}; migrations {summary['migrations']}")
+    profile_engine(rt.relaxed_pool[0].engine, cfg)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -970,11 +1380,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     paged_err = check_paged(pa_ops, pa_ref)
     flash_err, chunk_err = check_flash(fp_ops, fp_ref)
+    g_paged_err = check_paged(pa_ops, pa_ref, heads=GRANITE_HEADS)
+    g_flash_err, g_chunk_err = check_flash_heads(fp_ops, fp_ref, GRANITE_HEADS)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     paged_t = time_paged(pa_ops, pa_ref, flush)
     flash_t = time_flash(fp_ops, fp_ref, flush, 512)
     flash_long_t = time_flash(fp_ops, fp_ref, flush, 2048)
     chunk_t = time_flash_chunk(fp_ops, fp_ref, flush)
+    g_paged_t = time_paged(pa_ops, pa_ref, flush, heads=GRANITE_HEADS)
+    g_flash_t = time_flash(fp_ops, fp_ref, flush, 512, heads=GRANITE_HEADS)
+    g_chunk_t = time_flash_chunk(fp_ops, fp_ref, flush, heads=GRANITE_HEADS)
     del flush
     torch.cuda.empty_cache()
 
@@ -983,9 +1398,18 @@ def main() -> int:
     colocated, model, params, donor, pm = main_path(fp_ops, pa_ops, cfg)
     engine_checks(model, params, cfg)
     default = default_path(fp_ops, pa_ops, cfg, model, params, donor, pm)
-    del donor
-    # launches by path: phase 1 (co-located: whole prompts) and phase 2
-    # (default configuration: every prompt through chunks)
+    # phase 2's pools and qwen's weights go before the MoE model is seeded
+    del donor, model, params, pm
+    torch.cuda.empty_cache()
+    print(f"after phases 1-2: torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    moe = gateway_path(fp_ops, pa_ops, get_config("granite-moe-3b-a800m"))
+    # launches by path: phase 1 (co-located) and phase 2 (default
+    # configuration); flash launches split into whole prompts and chunks
+    whole_n = {"colocated": colocated["flash_prefill_whole_prompt"],
+               "default": default["flash_prefill_whole_prompt"]}
+    long_n = {path: ph["flash_prefill_whole_prompt_by_len"].get(2048, 0)
+              for path, ph in (("colocated", colocated), ("default", default))}
     paged_n = {"colocated": colocated["paged_attention"],
                "default": default["paged_attention"]}
     paged = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -994,19 +1418,37 @@ def main() -> int:
              "max_abs_err": paged_err}
     flash = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "replaces": "src/repro/kernels/flash_prefill/kernel.py:86",
-             "launches": colocated["flash_prefill"], "max_abs_err": flash_err}
+             "launches": sum(whole_n.values()), "launches_by_path": whole_n,
+             "max_abs_err": flash_err}
     kernels = [
         {"name": "paged_attention", "shape": "B=8 ctx=512", **paged, **paged_t},
         {"name": "flash_prefill", "shape": "B=1 S=512", "use": "whole prompt",
          **flash, **flash_t},
-        # prompts are clipped to 512 tokens on the main path: no launch at S=2048
         {"name": "flash_prefill (S=2048)", "shape": "B=1 S=2048", "use": "whole prompt",
-         **flash, "launches": 0, **flash_long_t},
+         **flash, "launches": sum(long_n.values()), "launches_by_path": long_n,
+         **flash_long_t},
         {"name": "flash_prefill (chunk)",
          "shape": "B=1 C=256 c=192 q_offset=320 Skv=512 kv_len=512", "use": "chunk",
-         **flash, "launches": default["flash_prefill"],
+         **flash, "launches": default["flash_prefill_chunk"],
+         "launches_by_path": {"default": default["flash_prefill_chunk"]},
          "launches_at_q_offset": default["flash_prefill_at_offset"],
          "max_abs_err": chunk_err, **chunk_t},
+        # granite-moe-3b-a800m's heads (24/8, hd 64): phase 3, behind the gateway
+        {"name": "paged_attention (granite)", "shape": "B=8 ctx=512 heads=24/8 hd=64",
+         **paged, "launches": moe["paged_attention"],
+         "launches_by_path": {"gateway_moe": moe["paged_attention"]},
+         "max_abs_err": g_paged_err, **g_paged_t},
+        {"name": "flash_prefill (granite)", "shape": "B=1 S=512 heads=24/8 hd=64",
+         "use": "whole prompt", **flash, "launches": moe["flash_prefill_whole_prompt"],
+         "launches_by_path": {"gateway_moe": moe["flash_prefill_whole_prompt"]},
+         "max_abs_err": g_flash_err,
+         **g_flash_t},
+        {"name": "flash_prefill (granite chunk)",
+         "shape": "B=1 C=256 c=192 q_offset=320 Skv=512 kv_len=512 heads=24/8 hd=64",
+         "use": "chunk", **flash, "launches": moe["flash_prefill_chunk"],
+         "launches_by_path": {"gateway_moe": moe["flash_prefill_chunk"]},
+         "launches_at_q_offset": moe["flash_prefill_at_offset"],
+         "max_abs_err": g_chunk_err, **g_chunk_t},
     ]
     for k in kernels:
         k["x_library"] = k["ms"] / k["library_ms"]

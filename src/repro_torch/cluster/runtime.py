@@ -1405,7 +1405,8 @@ class PoolRuntime:
             return empty
         if self.chunked:
             plan = self._plan_round(slot, relaxed, pf_req)
-            batch = self._fit_batch(slot, plan.decode)
+            selected = plan.decode
+            batch = self._fit_batch(slot, selected)
             chunk = plan.chunk_tokens if plan.prefill is not None else 0
             allowance = plan.horizon
             if chunk:
@@ -1426,9 +1427,19 @@ class PoolRuntime:
                                         exclude={r.rid for r in batch},
                                         reserved_pages=reserved)
         else:
-            batch = self._fit_batch(slot, self._select_batch(slot, relaxed))
+            selected = self._select_batch(slot, relaxed)
+            batch = self._fit_batch(slot, selected)
             chunk = 0
             allowance = self._horizon_allowance(relaxed)
+        if (not relaxed and not selected and not chunk and slot.offline
+                and not slot.online):
+            # mix decoding admitted no offline row and no online row is here
+            # to protect. Its bound would hold these residents for good: in
+            # wall mode it scales with measured_tpot, which moves only when a
+            # strict slot decodes; in virtual mode it is slo_tpot against the
+            # modelled step of contexts that do not grow while they wait. So
+            # they decode (the reference strands them: ROADMAP queue 3)
+            batch = self._fit_batch(slot, slot.offline)
         if chunk:
             # chunked rounds fuse the horizon too (mixed-horizon dispatch):
             # K decode iterations ride the scan while the chunk lands as K

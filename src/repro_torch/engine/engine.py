@@ -50,7 +50,7 @@ from repro_torch.engine.kv_cache import (PagedKVCache, to_device, transfer_check
 from repro_torch.kernels import require_device, resolve_backend
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe as moe_lib
 from repro_torch.models.transformer import Transformer, _norm
 
 class EngineCrashedError(RuntimeError):
@@ -330,13 +330,19 @@ class ServingEngine:
 
     def _layer_tail(self, lp, x, a):
         """Everything after attention's out-projection ``a``: post-norm,
-        residual, norm, MLP, residual. Shared by every layer body."""
+        residual, norm, MLP or MoE, residual. Shared by every layer body. An
+        MoE layer routes all rows of ``x`` together, as the reference does:
+        the padded prompt bucket, the padded decode bucket, or a chunk's
+        bucket on its own. Capacity couples those rows, in token order."""
         cfg = self.cfg
         if cfg.use_post_norm:
             a = _norm(cfg, lp["post_ln1"], a)
         x = x + a
         h = _norm(cfg, lp["ln2"], x)
-        m = layers.mlp(lp["mlp"], h, cfg.mlp_act)
+        if cfg.is_moe:
+            m = moe_lib.moe_dispatch(lp["moe"], h, cfg, groups=1)[0]
+        else:
+            m = layers.mlp(lp["mlp"], h, cfg.mlp_act)
         if cfg.use_post_norm:
             m = _norm(cfg, lp["post_ln2"], m)
         return x + m
@@ -517,14 +523,20 @@ class ServingEngine:
     def _decode_rows(self, tokens, positions, tables, lengths, active=None):
         """Device args of one decode iteration. Rows whose ``active`` flag is
         false (a horizon row past its last step) write into the trash page 0
-        and attend over the ``positions`` tokens they already hold."""
+        and attend as the reference's do: over ``positions + 1`` keys read
+        through their table, whose last one they did not write, capped at
+        the table's ``P * page_size`` slots (the reference's gather holds no
+        more). Their output is discarded, but under MoE capacity a row's
+        hidden state decides which later rows keep their expert slots."""
+        P, page = tables.shape[1], self.cache.page_size
         rows = torch.arange(tables.shape[0], device=self.device)
-        page_ids = tables.long()[rows, positions // self.cache.page_size]
+        # a masked row's position may sit one page past its claim
+        page_ids = tables.long()[rows, (positions // page).clamp_max(P - 1)]
         if active is not None:
             page_ids = torch.where(active, page_ids, 0)
-            lengths = torch.where(active, positions + 1, positions.clamp_min(1)).int()
+            lengths = (positions + 1).clamp_max(P * page).int()
         return _DecodeRows(tokens, positions, tables, lengths, page_ids,
-                           positions % self.cache.page_size)
+                           positions % page)
 
     def _decode_logits(self, tokens, positions, tables, lengths):
         """One decode iteration over the layer stack: per layer, the new

@@ -72,10 +72,17 @@ def attn_prefill(p, x, positions, cfg: ModelConfig, *, window: int = 0,
     resolved engine backend (``repro_torch.kernels.resolve_backend``)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions, rope=not cfg.is_encoder_decoder)
+    n = fp_ops.flash_attention.launches
     out = _attend(q, k, v, cfg, backend=backend, causal=causal, window=window,
                   kv_lens=kv_lens)
+    # the wrapper's own count, split off for whole prompts by length
+    launched = attn_prefill.flash_launches
+    launched[S] = launched.get(S, 0) + fp_ops.flash_attention.launches - n
     out = layers.dense(p["wo"], out.reshape(B, S, -1))
     return out, (k, v)
+
+
+attn_prefill.flash_launches = {}   # flash kernel launches of whole prompts, by length
 
 
 def attn_chunk(p, q, k_ctx, v_ctx, cfg: ModelConfig, *, q_offset: int, kv_lens,

@@ -1,5 +1,5 @@
-"""Decoder-only transformer (dense family): parameters and the pieces the
-serving engine composes per layer.
+"""Decoder-only transformer (dense and MoE families): parameters and the
+pieces the serving engine composes per layer.
 
 The parameter pytree matches ``repro.models.transformer.Transformer.init``:
 a nested dict whose ``layers`` leaves are stacked on axis 0, so weights made
@@ -14,7 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe as moe_lib
 from repro_torch.models.config import AUDIO, ModelConfig
 
 Params = Any
@@ -32,18 +32,19 @@ def _norm(cfg: ModelConfig, p, x):
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
-    """Transformer block parameters (attention + MLP + norms), with ``stack``
-    leading axes on every leaf."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE blocks are not ported yet: ROADMAP queue 1")
+    """Transformer block parameters (attention + MLP/MoE + norms), with
+    ``stack`` leading axes on every leaf."""
     dev = gen.device
     p = {
         "ln1": _norm_init(cfg, cfg.d_model, dev, stack),
         "attn": attention.init_attn(gen, cfg, stack),
         "ln2": _norm_init(cfg, cfg.d_model, dev, stack),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.torch_dtype,
-                               cfg.mlp_act, stack),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg, stack)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.torch_dtype,
+                                   cfg.mlp_act, stack)
     if cfg.use_post_norm:
         p["post_ln1"] = _norm_init(cfg, cfg.d_model, dev, stack)
         p["post_ln2"] = _norm_init(cfg, cfg.d_model, dev, stack)
@@ -51,7 +52,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
 
 
 class Transformer:
-    """Dense decoder-only model."""
+    """Dense / MoE decoder-only model."""
 
     def __init__(self, cfg: ModelConfig):
         if cfg.local_global:

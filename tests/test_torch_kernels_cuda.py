@@ -115,3 +115,61 @@ def test_cuda_flash_kernel_on_chunk_shapes():
                                  kv_len=cp * page, q_offset=off, kv_lens=lens).transpose(1, 2)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
         assert fp_ops.flash_attention.launches == n + 1
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_at_granite_heads():
+    """Both kernels at granite-moe-3b-a800m's attention shape (24 query heads
+    over 8 KV heads, G = 3, head_dim 64). Paged decode on the main path's
+    plans (bucket 8, tables of 32 and 64 pages, ragged lengths with a padded
+    row, lengths on the planner's chunk boundaries at Hkv 8); flash prefill
+    on whole prompts (S 128, 512) with a ragged row, and on chunk shapes over
+    K/V gathered from a paged pool at a q_offset that is no multiple of the
+    query tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev, Hq, Hkv, hd, page = "cuda", 24, 8, 64, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, _ = pa_ops.plan_splits(8, Hkv, 64, page, sms)
+    for P, lens in ((32, [512, 300, 497, 64, 65, 1, 511, 129]),
+                    (64, [540, 512, 129, 1000, 128, 1, 257, 33]),
+                    (64, [chunk - 1, chunk, chunk + 1, 2 * chunk, 7, 1, 1024,
+                          3 * chunk + 5])):
+        q, kp, vp, tables, lengths = _paged_inputs(8, Hq, Hkv, hd, page, P, 600, 5, seed=P)
+        lengths[:] = lens
+        q, kp, vp = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, kp, vp))
+        tables, lengths = torch.from_numpy(tables).to(dev), torch.from_numpy(lengths).to(dev)
+        n = pa_ops.paged_attention.launches
+        got = pa_ops.paged_attention(q, kp, vp, tables, lengths, num_kv_heads=Hkv)
+        want = paged_attention_ref(q.reshape(8, Hkv, Hq // Hkv, hd), kp, vp, tables,
+                                   lengths).reshape(q.shape)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+        assert pa_ops.paged_attention.launches == n + 1
+
+    g = torch.Generator(dev).manual_seed(2)
+    for S in (128, 512):
+        q = torch.randn(2, S, Hq, hd, generator=g, device=dev).bfloat16()
+        k = torch.randn(2, S, Hkv, hd, generator=g, device=dev).bfloat16()
+        v = torch.randn(2, S, Hkv, hd, generator=g, device=dev).bfloat16()
+        lens = torch.tensor([S, S // 2 + 3], dtype=torch.int32, device=dev)
+        got = fp_ops.flash_attention(q, k, v, kv_lens=lens)
+        want = flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 kv_len=S, kv_lens=lens).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    for Sq, c, cp, off in ((16, 13, 8, 96), (256, 192, 32, 320), (512, 300, 64, 200)):
+        npages = 2 * cp + 1
+        kp = torch.randn(npages, page, Hkv, hd, generator=g, device=dev).bfloat16()
+        vp = torch.randn(npages, page, Hkv, hd, generator=g, device=dev).bfloat16()
+        used = -(-(off + c) // page)
+        table = torch.zeros(cp, dtype=torch.long, device=dev)
+        table[:used] = torch.randperm(npages - 1, generator=g, device=dev)[:used] + 1
+        k = kp[table].reshape(1, cp * page, Hkv, hd)
+        v = vp[table].reshape(1, cp * page, Hkv, hd)
+        q = torch.randn(1, Sq, Hq, hd, generator=g, device=dev).bfloat16()
+        lens = torch.tensor([off + c], dtype=torch.int32, device=dev)
+        n = fp_ops.flash_attention.launches
+        got = fp_ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off)
+        want = flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 kv_len=cp * page, q_offset=off, kv_lens=lens).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+        assert fp_ops.flash_attention.launches == n + 1
