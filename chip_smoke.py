@@ -16,10 +16,15 @@
    320}), each max abs error beside its tolerance, and each wrapper call's
    host syncs (must be 0). The same again at granite-moe-3b-a800m's heads
    (24 query heads over 8 KV heads, hd 64): the paged cases, whole prompts
-   at S 128 and 512, every chunk case. Then timings on CUDA events
+   at S 128 and 512, every chunk case. Flash prefill at the model_api
+   phase's heads: gemma2-2b's (8/4, hd 256: S 6144 across its 4096 window
+   with softcap 50 and a 700-token row, the global layers' shape, a chunk,
+   a row with kv_lens 0) and phi-3-vision-4.2b's (32/32, hd 96: S 1536; a
+   window and softcap on a ragged row; G = 4). Then timings on CUDA events
    (``time_ms``) at both models' heads: kernel, plain version, the least
    time the card could take (bound) and one PyTorch library call computing
-   the same function (which the port never calls).
+   the same function (which the port never calls); at hd 256 the library
+   call is SDPA with an additive mask, which has no softcap.
 3. Phase 1: full-width qwen2.5-7b (28 layers, bf16, seeded random weights)
    served by the port's PoolRuntime in CoLocatedServer's configuration
    (ooco, 1 strict + 1 relaxed engine, decode bucket 8, whole-prompt
@@ -51,10 +56,29 @@
    drain. Every stream ends in exactly one outcome, finished streams carry
    the runtime's tokens, no page leaks, both kernels launch. The client's
    TTFT and time per token print beside the runtime's own.
-7. Prints the kernel table as one JSON line (flash prefill at S=512, at
-   S=2048 and on the chunk shape, and the granite rows, each row with its
-   ratio to the library call and its launches by path), the card line
-   again, and last ``{"ok": true, "device": {...}}``.
+7. Phase 4 (model_api): the whole-model ``Transformer`` API at full width
+   and depth with seeded random bf16 weights, one model after the other:
+   gemma2-2b (26 layers alternating a 4096 window and global attention, hd
+   256, softcaps 50 and 30) prefills prompts of 6144 and 700 tokens with
+   cache_len 6160 (the 6144-token row keeps the last 4096 tokens in its
+   local rings), phi-3-vision-4.2b (32 layers, hd 96) prefills two rows of
+   1024 image embeddings and 512 tokens; each then takes 8 greedy
+   ``decode_step``s (gemma2's local rings wrap). Kernel path against the
+   plain path on the same inputs: every prefill layer launches the flash
+   kernel once (by the wrapper's count, keyed by window and head_dim), the
+   paged kernel never; the greedy tokens agree at every step but where the
+   plain top-2 margin is below twice the row's largest logit difference
+   (counted); host wall and device busy per prefill and decode step. The
+   whole-model gate is a witness at 4 layers, full width: the bf16 kernel
+   path may be at most 1.5x as far from the f32 plain path's logits as the
+   bf16 plain path. Faults planted in what the kernel path hands the kernel
+   (window, softcap, score scale, the last 64 keys) show which the gate can
+   see; the ones it must see have to read above the limit.
+8. Prints the kernel table as one JSON line (flash prefill at S=512, at
+   S=2048 and on the chunk shape, the granite rows, and gemma2's and
+   phi-3-vision's prefill shapes, each row with its ratio to the library
+   call and its launches by path), the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device the
 script exits 1 at once. It imports nothing of JAX and nothing of ``repro``.
@@ -90,6 +114,20 @@ MOE_LOGITS_REL_TOL = 5e-2   # the dense limit; the H100 run read 1.03e-2
 MOE_ROUTING_TOL = 0.05      # the H100 run read 0.97% of the choices
 QWEN_HEADS = (28, 4, 128)     # qwen2.5-7b: Hq, Hkv, hd (G = 7)
 GRANITE_HEADS = (24, 8, 64)   # granite-moe-3b-a800m: Hq, Hkv, hd (G = 3)
+GEMMA2_HEADS = (8, 4, 256)    # gemma2-2b: Hq, Hkv, hd (G = 2)
+PHI3V_HEADS = (32, 32, 96)    # phi-3-vision-4.2b: Hq, Hkv, hd (G = 1)
+#: the model_api phase's prefill attention, per model: heads, kv_lens of the
+#: two rows (the batch is padded to the longest), window, attention softcap.
+#: gemma2's local layers (window 4096) are timed; its global ones differ only
+#: in the window. phi-3-vision: 1024 image embeddings + 512 text tokens a row.
+#: softcap cases scale q by CAP_Q_SCALE, so that their scores (about
+#: N(0, 16^2) over unit keys) reach the cap: at N(0, 1) scores tanh(s/50)*50
+#: equals s within 0.2%, and a kernel that skipped the cap would pass. Each
+#: such case also checks that the plain version without the softcap lies at
+#: least CAP_VISIBLE tolerances away from the one with it.
+CAP_Q_SCALE, CAP_VISIBLE = 16.0, 10.0
+WIDE_SHAPES = {"gemma2-2b": (GEMMA2_HEADS, [6144, 700], 4096, 50.0),
+               "phi-3-vision-4.2b": (PHI3V_HEADS, [1536, 1536], 0, 0.0)}
 DEVICE = "cuda"
 
 
@@ -108,6 +146,19 @@ def card_line() -> str:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def cap_visible(name: str, want, uncapped) -> float:
+    """How far the plain version without the softcap lies from ``want``,
+    the one with it, in tolerances (max over elements of |uncapped - want|
+    / (ATOL + RTOL |want|)); fails below CAP_VISIBLE, where a kernel that
+    skipped the cap could pass the case."""
+    want = want.float()
+    r = ((uncapped.float() - want).abs() / (ATOL + RTOL * want.abs())).max().item()
+    print(f"  {name}: the plain version without the softcap lies {r:.1f} tolerances away")
+    check(r >= CAP_VISIBLE, f"{name}: the softcap moves the output by only {r:.2f} "
+          f"tolerances, so this case cannot fail a kernel that skips it")
+    return r
 
 
 def compare(name: str, out, want) -> float:
@@ -136,7 +187,10 @@ def read_launches(fp_ops, pa_ops) -> dict:
     """The counts since ``reset_launches``: flash launches split into whole
     prompts (by length) and chunks (at q_offset > 0 counted apart too)."""
     from repro_torch.models import attention
-    whole = {s: n for s, n in attention.attn_prefill.flash_launches.items() if n}
+    whole = {}
+    for (s, _, _), n in attention.attn_prefill.flash_launches.items():
+        if n:
+            whole[s] = whole.get(s, 0) + n
     n_whole = sum(whole.values())
     return {"flash_prefill": fp_ops.flash_attention.launches,
             "flash_prefill_whole_prompt": n_whole,
@@ -177,9 +231,10 @@ def time_ms(fn, iters: int, flush) -> float:
     leave 50 MB of dirty lines for the call to write back). Each run of
     ``iters`` flushes is queued behind a device-side sleep (outside the timed
     window), so the host's time to enqueue a call never shows as a gap. Runs
-    with ``fn`` after every flush alternate with runs of the flushes alone,
-    twice each; the difference per call is the time ``fn`` adds to the
-    stream, its launch included."""
+    with ``fn`` after every flush alternate with runs of the flushes alone;
+    the difference per call is the time ``fn`` adds to the stream, its
+    launch included. The median of five such pairs: one pair's difference
+    can come out below zero for a call shorter than the flushes' spread."""
     import torch
     for _ in range(2):
         fn()
@@ -197,8 +252,8 @@ def time_ms(fn, iters: int, flush) -> float:
         torch.cuda.synchronize()
         return start.elapsed_time(end)
 
-    runs = [run(True), run(False), run(True), run(False)]
-    return (runs[0] + runs[2] - runs[1] - runs[3]) / (2 * iters)
+    diffs = sorted(run(True) - run(False) for _ in range(5))
+    return diffs[2] / iters
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -261,12 +316,18 @@ def check_paged(ops, ref, softcap_cases=(0.0, 50.0), heads=QWEN_HEADS) -> float:
         print(f"paged decode plan at B={B}, {tables.shape[1]} pages: "
               f"{ops.plan_splits(B, Hkv, tables.shape[1], 16, sms)} (chunk, splits)")
         for cap in softcap_cases:
-            out = ops.paged_attention(q, kp, vp, tables, lens, num_kv_heads=Hkv,
+            qc = (q.float() * CAP_Q_SCALE).bfloat16() if cap else q
+            out = ops.paged_attention(qc, kp, vp, tables, lens, num_kv_heads=Hkv,
                                       logit_softcap=cap)
-            want = ref.paged_attention_ref(q.reshape(B, Hkv, Hq // Hkv, hd), kp, vp, tables,
-                                           lens, logit_softcap=cap).reshape(q.shape)
-            err = compare(f"paged decode heads={Hq}/{Hkv} hd={hd} B={B} P={tables.shape[1]} "
-                          f"lengths={lengths} softcap={cap}", out, want)
+            plain = lambda c: ref.paged_attention_ref(  # noqa: E731
+                qc.reshape(B, Hkv, Hq // Hkv, hd), kp, vp, tables, lens,
+                logit_softcap=c).reshape(q.shape)
+            want = plain(cap)
+            name = (f"paged decode heads={Hq}/{Hkv} hd={hd} B={B} P={tables.shape[1]} "
+                    f"lengths={lengths} softcap={cap}" + (f" q x {CAP_Q_SCALE}" if cap else ""))
+            err = compare(name, out, want)
+            if cap:
+                cap_visible(name, want, plain(0.0))
             worst = max(worst, err)
     syncs = count_syncs(lambda: ops.paged_attention(q, kp, vp, tables, lens,
                                                     num_kv_heads=Hkv))
@@ -275,10 +336,10 @@ def check_paged(ops, ref, softcap_cases=(0.0, 50.0), heads=QWEN_HEADS) -> float:
     return worst
 
 
-def flash_case(B, Sq, Skv, *, Hq=28, Hkv=4, hd=128, seed=1):
+def flash_case(B, Sq, Skv, *, Hq=28, Hkv=4, hd=128, seed=1, q_scale=1.0):
     import torch
     g = torch.Generator(DEVICE).manual_seed(seed)
-    q = torch.randn(B, Sq, Hq, hd, generator=g, device=DEVICE).bfloat16()
+    q = (torch.randn(B, Sq, Hq, hd, generator=g, device=DEVICE) * q_scale).bfloat16()
     k = torch.randn(B, Skv, Hkv, hd, generator=g, device=DEVICE).bfloat16()
     v = torch.randn(B, Skv, Hkv, hd, generator=g, device=DEVICE).bfloat16()
     return q, k, v
@@ -305,22 +366,37 @@ def check_flash(ops, ref) -> tuple[float, float]:
               (2, 200, 264, 64, [264, 130], 96, 30.0, *qwen),
               (2, 300, 300, 0, [300, 77], 0, 0.0, 8, 4, 64)]
     for B, Sq, Skv, off, kv, window, cap, Hq, Hkv, hd in cases:
-        q, k, v = flash_case(B, Sq, Skv, Hq=Hq, Hkv=Hkv, hd=hd)
-        lens = torch.tensor(kv, dtype=torch.int32, device=DEVICE)
-        out = ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off, window=window,
-                                  logit_softcap=cap)
-        want = ref.flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), kv_len=Skv, q_offset=off,
-                                     kv_lens=lens, window=window,
-                                     logit_softcap=cap).transpose(1, 2)
-        err = compare(f"flash prefill B={B} Sq={Sq} Skv={Skv} q_offset={off} "
-                      f"kv_lens={kv} window={window} softcap={cap} heads={Hq}/{Hkv} "
-                      f"hd={hd}", out, want)
-        worst = max(worst, err)
+        worst = max(worst, check_flash_case(ops, ref, "flash prefill", B, Sq, Skv, off, kv,
+                                            window, cap, (Hq, Hkv, hd)))
+    q, k, v = flash_case(B, Sq, Skv, Hq=Hq, Hkv=Hkv, hd=hd)
+    lens = torch.tensor(kv, dtype=torch.int32, device=DEVICE)
     syncs = count_syncs(lambda: ops.flash_attention(q, k, v, kv_lens=lens))
     print(f"host syncs per flash prefill call: {len(syncs)} {syncs}")
     check(not syncs, f"the flash prefill wrapper synchronized: {syncs}")
     return worst, check_flash_chunks(ops, ref)
+
+
+def check_flash_case(ops, ref, label, B, Sq, Skv, off, kv, window, cap, heads) -> float:
+    """One flash case against the plain version: max abs error. A softcap
+    case scales q by CAP_Q_SCALE, so that its scores reach the cap, and
+    checks that the cap moves the plain output (``cap_visible``)."""
+    import torch
+    Hq, Hkv, hd = heads
+    q, k, v = flash_case(B, Sq, Skv, Hq=Hq, Hkv=Hkv, hd=hd,
+                         q_scale=CAP_Q_SCALE if cap else 1.0)
+    lens = torch.tensor(kv, dtype=torch.int32, device=DEVICE)
+    out = ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off, window=window,
+                              logit_softcap=cap)
+    plain = lambda c: ref.flash_prefill_ref(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len=Skv,
+        q_offset=off, kv_lens=lens, window=window, logit_softcap=c).transpose(1, 2)
+    want = plain(cap)
+    name = (f"{label} B={B} Sq={Sq} Skv={Skv} q_offset={off} kv_lens={kv} window={window} "
+            f"softcap={cap} heads={Hq}/{Hkv} hd={hd}" + (f" q x {CAP_Q_SCALE}" if cap else ""))
+    err = compare(name, out, want)
+    if cap:
+        cap_visible(name, want, plain(0.0))
+    return err
 
 
 def check_flash_chunks(ops, ref, heads=QWEN_HEADS) -> float:
@@ -367,6 +443,94 @@ def check_flash_heads(ops, ref, heads) -> tuple[float, float]:
           f"{len(syncs)} {syncs}")
     check(not syncs, f"the flash prefill wrapper synchronized: {syncs}")
     return max(errs), check_flash_chunks(ops, ref, heads)
+
+
+def check_flash_wide(ops, ref) -> dict:
+    """Flash prefill at the head dims of the model_api phase, hd 256 (gemma2)
+    and hd 96 (phi-3-vision). First each model's own prefill shape
+    (``WIDE_SHAPES``): gemma2's 6144-token row crosses the 4096 window, and
+    its 700-token row leaves queries past 700 + 4096 that see no key; then
+    gemma2's global layers (no window), and small cases: a chunk at
+    q_offset > 0 under a window and a softcap, a row with kv_lens 0 (every
+    query sees no key), hd 96 with G = 4 and a window. Softcap cases scale
+    q so that their scores reach the cap (``check_flash_case``). Max abs
+    error per model; a call makes no host sync."""
+    import torch
+    worst = {}
+    cases = []
+    for name, (heads, kv, window, cap) in WIDE_SHAPES.items():
+        S = max(kv)
+        cases.append((name, 2, S, S, 0, kv, window, cap, heads))
+    g2, p3 = GEMMA2_HEADS, PHI3V_HEADS
+    cases += [("gemma2-2b", 2, 6144, 6144, 0, [6144, 700], 0, 50.0, g2),
+              ("gemma2-2b", 1, 200, 600, 400, [600], 256, 50.0, g2),
+              ("gemma2-2b", 2, 300, 300, 0, [300, 0], 0, 50.0, g2),
+              ("phi-3-vision-4.2b", 2, 300, 300, 0, [300, 77], 96, 30.0, p3),
+              ("phi-3-vision-4.2b", 2, 200, 264, 64, [264, 130], 0, 0.0, (16, 4, 96))]
+    for name, B, Sq, Skv, off, kv, window, cap, heads in cases:
+        err = check_flash_case(ops, ref, f"flash prefill ({name})", B, Sq, Skv, off, kv,
+                               window, cap, heads)
+        worst[name] = max(worst.get(name, 0.0), err)
+        torch.cuda.empty_cache()
+    Hq, Hkv, hd = heads
+    q, k, v = flash_case(B, Sq, Skv, Hq=Hq, Hkv=Hkv, hd=hd)
+    lens = torch.tensor(kv, dtype=torch.int32, device=DEVICE)
+    syncs = count_syncs(lambda: ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off))
+    print(f"host syncs per flash prefill call at hd {hd}: {len(syncs)} {syncs}")
+    check(not syncs, f"the flash prefill wrapper synchronized at hd {hd}: {syncs}")
+    return worst
+
+
+def time_flash_wide(ops, ref, flush, name) -> dict:
+    """A model_api prefill's attention (``WIDE_SHAPES[name]``): B=2, the
+    batch padded to the longer row, per-row kv_lens. The library call is SDPA
+    causal where there is no window and no softcap (phi-3-vision), else SDPA
+    with an additive mask for the window and kv_lens, which cannot apply the
+    tanh softcap (gemma2): it computes a cheaper function. Bound: q, K, V and
+    the output once, and the (query, key) pairs that the mask keeps."""
+    import torch
+    import torch.nn.functional as F
+    (Hq, Hkv, hd), kv, window, cap = WIDE_SHAPES[name]
+    S = max(kv)
+    q, k, v = flash_case(2, S, S, Hq=Hq, Hkv=Hkv, hd=hd)
+    lens = torch.tensor(kv, dtype=torch.int32, device=DEVICE)
+    call = lambda: ops.flash_attention(q, k, v, kv_lens=lens, window=window,  # noqa: E731
+                                       logit_softcap=cap)
+    plain = lambda: ref.flash_prefill_ref(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len=S,
+        kv_lens=lens, window=window, logit_softcap=cap)
+    compare(f"flash prefill ({name}) B=2 S={S} kv_lens={kv} window={window} "
+            f"softcap={cap} (timed inputs)", call(), plain().transpose(1, 2))
+    t_kernel = time_ms(call, 10, flush)
+    t_plain = time_ms(plain, 3, flush)
+    qi = torch.arange(S, device=DEVICE)[:, None]
+    kj = torch.arange(S, device=DEVICE)[None]
+    keep = (kj <= qi)[None] & (kj[None] < lens[:, None, None])          # (B, S, S)
+    if window:
+        keep &= (qi - kj < window)[None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window or cap or min(kv) < S:
+        mask = torch.zeros(keep.shape, dtype=q.dtype, device=DEVICE)
+        mask.masked_fill_(~keep, torch.finfo(q.dtype).min)
+        mask = mask[:, None]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib_name = "SDPA with an additive mask (no softcap in SDPA)"
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_name = "SDPA causal"
+    t_lib = time_ms(lib, 10, flush)
+    pairs = int(keep.sum())
+    nbytes = 2 * (2 * 2 * S * Hq * hd + 2 * 2 * S * Hkv * hd) + 8   # q, out, K, V, kv_lens
+    flops = 4 * pairs * Hq * hd
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"flash prefill ({name}) heads={Hq}/{Hkv} hd={hd} B=2 S={S} kv_lens={kv} "
+          f"window={window} softcap={cap}: kernel {t_kernel:.4f} ms, plain "
+          f"{t_plain:.4f} ms, {lib_name} {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{pairs} (query, key) pairs kept)")
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": t_lib, "library": lib_name}
 
 
 #: chunk-side shapes (Sq bucket, real rows c, pages cp of 16, q_offset)
@@ -1347,6 +1511,287 @@ def gateway_path(fp_ops, pa_ops, cfg) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the whole-model Transformer API (model_api)
+# ---------------------------------------------------------------------------
+
+#: per model: text tokens of the two rows, cache_len (None: the whole input
+#: plus the decode steps), image embeddings per row (VLM)
+MODEL_API_RUNS = {"gemma2-2b": ([6144, 700], 6160, 0),
+                  "phi-3-vision-4.2b": ([512, 512], None, 1024)}
+DECODE_STEPS = 8
+WITNESS_LAYERS = 4
+# Whole-model gate, at full width and WITNESS_LAYERS layers: the bf16 kernel
+# path's logits may be at most this many times as far from the f32 plain
+# path's as the bf16 plain path's are (both lose the same bf16 rounding of
+# weights and activations; a wrong kernel adds its own error on top).
+WITNESS_RATIO_TOL = 1.5
+#: faults planted in the witness's kernel path, each by what it hands the
+#: kernel (which still launches), to show which the gate can see: the local
+#: layers' window dropped, the attention softcap dropped, the score scale of
+#: a head_dim padded to 128 (q scaled by sqrt(hd / 128)), the last 64 keys of
+#: every row dropped (kv_lens - 64). Each reading is printed; those named in
+#: WITNESS_MUST_SEE must read above WITNESS_RATIO_TOL.
+WITNESS_FAULTS = ("window dropped", "softcap dropped", "scale 1/sqrt(128)",
+                  "last 64 keys dropped")
+WITNESS_MUST_SEE = {"gemma2-2b": ("window dropped", "last 64 keys dropped"),
+                    "phi-3-vision-4.2b": ("last 64 keys dropped",)}
+
+
+def model_api_batch(cfg, lengths, images, seed=5):
+    """Seeded tokens (B, max(lengths)), per-row ``lengths`` (counted over the
+    image tokens too) where the rows differ, and a VLM's image embeddings
+    (B, images, d_model) in f32 (each model casts them to its dtype)."""
+    import torch
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    B, S = len(lengths), max(lengths)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=DEVICE)}
+    if images:
+        batch["frontend_embeds"] = torch.randn(B, images, cfg.d_model, generator=g,
+                                               device=DEVICE)
+    if min(lengths) < S:
+        batch["lengths"] = torch.tensor([images + n for n in lengths], dtype=torch.int32,
+                                        device=DEVICE)
+    return batch
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """The kernel path's attention (``attention._attend``) with ``fault``
+    planted in what it hands the flash kernel."""
+    import dataclasses
+    from repro_torch.models import attention
+    attend = attention._attend
+
+    def faulty(q, k, v, cfg, *, backend, causal=True, window=0, q_offset=0, kv_lens=None):
+        if fault == "window dropped":
+            window = 0
+        elif fault == "softcap dropped":
+            cfg = dataclasses.replace(cfg, attn_logit_softcap=0.0)
+        elif fault == "scale 1/sqrt(128)":
+            q = (q.float() * (q.shape[-1] / 128) ** 0.5).to(q.dtype)
+        elif fault == "last 64 keys dropped":
+            kv_lens = (kv_lens - 64).clamp(min=0).to(kv_lens.dtype)
+        return attend(q, k, v, cfg, backend=backend, causal=causal, window=window,
+                      q_offset=q_offset, kv_lens=kv_lens)
+
+    attention._attend = faulty
+    try:
+        yield
+    finally:
+        attention._attend = attend
+
+
+def witness(cfg, batch):
+    """The whole-model gate: the model at full width and WITNESS_LAYERS
+    layers, seeded in f32, prefilled three ways on the same batch: f32 plain
+    path (the reference), bf16 kernel path and bf16 plain path, over the
+    same weights rounded to bf16. Each bf16 path's last-token logits
+    distance to the f32 ones (max abs / max |logit|); the kernel's may be at
+    most WITNESS_RATIO_TOL times the plain's. Returns the readings and a
+    function that runs the kernel path again with each planted fault that
+    applies to ``cfg`` (WITNESS_FAULTS) and returns its ratio; it fails if a
+    fault in WITNESS_MUST_SEE reads within the limit."""
+    import dataclasses
+    import torch
+    from repro_torch.models.transformer import Transformer
+    c32 = dataclasses.replace(cfg, num_layers=WITNESS_LAYERS, dtype="float32")
+    c16 = dataclasses.replace(c32, dtype="bfloat16")
+    p32 = Transformer(c32).init(torch.Generator(DEVICE).manual_seed(3))
+    p16 = _tree_map(lambda t: t.bfloat16(), p32)
+    kernel_path = Transformer(c16, backend="cuda")
+    with torch.inference_mode():
+        want = Transformer(c32, backend="ref").prefill(p32, batch)[0]
+        ker = kernel_path.prefill(p16, batch)[0]
+        pln = Transformer(c16, backend="ref").prefill(p16, batch)[0]
+    d_ker, d_pln = rel_err(ker, want), rel_err(pln, want)
+    ratio = d_ker / d_pln
+    print(f"model_api witness {cfg.name} at {WITNESS_LAYERS} layers, full width: last-token "
+          f"logits max abs err / max |logit| against the f32 plain path: bf16 kernel path "
+          f"{d_ker:.3e}, bf16 plain path {d_pln:.3e}; ratio {ratio:.3f} "
+          f"(limit {WITNESS_RATIO_TOL})")
+    check(bool(torch.isfinite(ker).all()), "witness kernel-path logits are not finite")
+    check(ratio <= WITNESS_RATIO_TOL, f"{cfg.name}: the kernel path is {ratio:.2f}x as far "
+          f"from the f32 logits as the plain path")
+
+    def planted_faults() -> dict:
+        applies = {"window dropped": bool(cfg.sliding_window), "softcap dropped":
+                   bool(cfg.attn_logit_softcap), "scale 1/sqrt(128)": cfg.head_dim_ != 128,
+                   "last 64 keys dropped": True}
+        ratios = {}
+        for fault in WITNESS_FAULTS:
+            if not applies[fault]:
+                continue
+            with planted(fault), torch.inference_mode():
+                bad = kernel_path.prefill(p16, batch)[0]
+            ratios[fault] = rel_err(bad, want) / d_pln
+            seen = ratios[fault] > WITNESS_RATIO_TOL
+            print(f"model_api witness {cfg.name}, planted fault '{fault}': ratio "
+                  f"{ratios[fault]:.3f} ({'fails' if seen else 'passes'} the gate)")
+            check(seen or fault not in WITNESS_MUST_SEE.get(cfg.name, ()),
+                  f"{cfg.name}: the witness gate passes the planted fault '{fault}'")
+        return ratios
+
+    return {"kernel": d_ker, "plain": d_pln, "ratio": ratio}, planted_faults
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def timed_call(fn):
+    """(result, host wall ms) of one call that ends in a device sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def device_busy(what, fn, wall) -> float:
+    """One more call of ``fn`` under torch.profiler: its device busy ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return report_profile(what, prof, wall, 1)
+
+
+def model_api_path(fp_ops, pa_ops, name) -> dict:
+    """Phase 4, one model at full width and depth with seeded random bf16
+    weights, through ``build_model`` and the ``Transformer`` API: ``prefill``
+    with ``cache_len`` on the kernel path and on the plain path (asked for
+    by name), then DECODE_STEPS greedy ``decode_step``s on each, both fed the
+    plain path's token, so that every step compares the two on the same
+    input. Every prefill layer must launch the flash kernel once (by the
+    wrapper's count, keyed by window and head_dim), the paged kernel never.
+    The kernel path must pick the plain path's token at every step of every
+    row, unless the plain top-2 margin is below twice the row's largest
+    |kernel - plain| logit difference (a difference that large can swap
+    them): such steps are counted. Then the witness gate."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(name)
+    lengths, cache_len, images = MODEL_API_RUNS[name]
+    t0 = time.perf_counter()
+    model_k, model_p = build_model(cfg, backend="cuda"), build_model(cfg, backend="ref")
+    params = model_k.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model_api {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, windows {model_k._windows()}, softcaps "
+          f"{cfg.attn_logit_softcap}/{cfg.final_logit_softcap}; {n_params / 1e9:.3f} B "
+          f"params ({n_params * 2 / 1e9:.2f} GB bf16), seeded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = model_api_batch(cfg, lengths, images)
+    S = batch["tokens"].shape[1] + images
+    cache_len = cache_len or S + DECODE_STEPS
+    print(f"model_api {name}: prefill of B=2 x {S} positions ({images} image embeddings + "
+          f"text {lengths}), cache_len {cache_len}")
+
+    results = {}
+    reset_launches(fp_ops, pa_ops)
+    with torch.inference_mode():
+        for label, model in (("kernel", model_k), ("plain", model_p)):
+            n0, p0 = fp_ops.flash_attention.launches, pa_ops.paged_attention.launches
+            d0 = dict(attention.attn_prefill.flash_launches)
+            (logits, cache), wall = timed_call(
+                lambda: model.prefill(params, batch, cache_len=cache_len))
+            launched = {k: n - d0.get(k, 0)
+                        for k, n in attention.attn_prefill.flash_launches.items()}
+            results[label] = {"logits": [logits.float()], "cache": cache, "prefill_ms": wall,
+                              "flash": launched,
+                              "flash_n": fp_ops.flash_attention.launches - n0,
+                              "paged_n": pa_ops.paged_attention.launches - p0}
+        ker, pln = results["kernel"], results["plain"]
+        by_window = {(w, hd): n for (_, w, hd), n in ker["flash"].items() if n}
+        print(f"model_api {name} flash launches per kernel-path prefill by (window, head_dim): "
+              f"{by_window} (wrapper count {ker['flash_n']}); paged launches "
+              f"{ker['paged_n']}; plain-path prefill: flash {pln['flash_n']}, paged "
+              f"{pln['paged_n']}")
+        want = {(w, cfg.head_dim_): n for w, n in zip(
+            model_k._windows(), [cfg.num_layers // len(model_k._windows())] * 2)}
+        check(by_window == want and ker["flash_n"] == cfg.num_layers,
+              f"{name}: flash launches {by_window}, expected {want}")
+        check(ker["paged_n"] == 0 and pln["flash_n"] == 0 and pln["paged_n"] == 0,
+              f"{name}: unexpected launches {ker['paged_n']}/{pln['flash_n']}/{pln['paged_n']}")
+        for key, leaf in pln["cache"].items():
+            check(ker["cache"][key].shape == leaf.shape, f"{name}: cache {key} shapes differ")
+        print(f"model_api {name} cache: " + ", ".join(
+            f"{k} {tuple(v.shape)}" for k, v in ker["cache"].items()))
+
+        # greedy decode, both paths fed the plain path's token
+        toks, step_ms = [], []
+        for _ in range(DECODE_STEPS):
+            tok = pln["logits"][-1].argmax(-1)
+            toks.append(tok)
+            for label, model in (("kernel", model_k), ("plain", model_p)):
+                r = results[label]
+                (logits, r["cache"]), wall = timed_call(
+                    lambda: model.decode_step(params, tok, r["cache"]))
+                r["logits"].append(logits.float())
+                if label == "kernel":
+                    step_ms.append(wall)
+        check(fp_ops.flash_attention.launches == ker["flash_n"] + pln["flash_n"]
+              and pa_ops.paged_attention.launches == 0,
+              f"{name}: decode steps launched a kernel")
+        excused, dists = 0, []
+        for t, (lk, lp) in enumerate(zip(ker["logits"], pln["logits"])):
+            check(bool(torch.isfinite(lk).all()), f"{name}: step {t} logits not finite")
+            dists.append(rel_err(lk, lp))
+            for row in range(lk.shape[0]):
+                a, b = int(lp[row].argmax()), int(lk[row].argmax())
+                if a == b:
+                    continue
+                top2 = lp[row].topk(2).values
+                margin = (top2[0] - top2[1]).item()
+                tol = 2 * (lk[row] - lp[row]).abs().max().item()
+                print(f"  step {t} row {row}: kernel token {b} vs plain {a}; plain top-2 "
+                      f"margin {margin:.4f}, tolerance {tol:.4f}")
+                check(margin < tol, f"{name}: step {t} row {row}: tokens differ at a margin "
+                      f"of {margin:.4f} >= {tol:.4f}")
+                excused += 1
+        print(f"model_api {name}: kernel vs plain logits max abs err / max |logit|: prefill "
+              f"{dists[0]:.3e}, decode steps {['%.3e' % d for d in dists[1:]]}; greedy tokens "
+              f"equal at {2 * len(dists) - excused} of {2 * len(dists)} (row, step) picks, "
+              f"{excused} excused by the margin rule; tokens {torch.stack(toks, 1).tolist()}; "
+              f"cache pos {ker['cache']['pos'].tolist()}")
+
+        t_prefill = ker["prefill_ms"]
+        t_step = sum(step_ms[1:]) / (len(step_ms) - 1)
+        busy_prefill = device_busy(f"model_api {name} prefill (kernel path), B=2 x {S}",
+                                   lambda: model_k.prefill(params, batch, cache_len=cache_len),
+                                   t_prefill)
+        cache = ker["cache"]
+        busy_step = device_busy(f"model_api {name} decode_step, B=2, context ~{S}",
+                                lambda: model_k.decode_step(params, toks[-1], cache), t_step)
+        print(f"model_api {name}: prefill host wall {t_prefill:.2f} ms (plain path "
+              f"{pln['prefill_ms']:.2f} ms), device busy {busy_prefill:.2f} ms; decode_step "
+              f"host wall {t_step:.2f} ms, device busy {busy_step:.2f} ms")
+        del results, ker, pln, cache
+    wit, planted_faults = witness(cfg, batch)
+    launches = read_launches(fp_ops, pa_ops)
+    print(f"model_api {name} kernel launches of the phase (two kernel-path prefills, "
+          f"the witness's, decode steps): {launches}")
+    check(launches["paged_attention"] == 0, f"{name}: the paged kernel launched")
+    wit["faults"] = planted_faults()
+    del planted_faults
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"flash_by_window_hd": by_window, "flash_launches": launches["flash_prefill"],
+            "prefill_ms": t_prefill, "prefill_busy_ms": busy_prefill,
+            "decode_ms": t_step, "decode_busy_ms": busy_step, "logits_dist": dists,
+            "excused": excused, "witness": wit}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1382,6 +1827,7 @@ def main() -> int:
     flash_err, chunk_err = check_flash(fp_ops, fp_ref)
     g_paged_err = check_paged(pa_ops, pa_ref, heads=GRANITE_HEADS)
     g_flash_err, g_chunk_err = check_flash_heads(fp_ops, fp_ref, GRANITE_HEADS)
+    wide_err = check_flash_wide(fp_ops, fp_ref)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     paged_t = time_paged(pa_ops, pa_ref, flush)
     flash_t = time_flash(fp_ops, fp_ref, flush, 512)
@@ -1390,6 +1836,7 @@ def main() -> int:
     g_paged_t = time_paged(pa_ops, pa_ref, flush, heads=GRANITE_HEADS)
     g_flash_t = time_flash(fp_ops, fp_ref, flush, 512, heads=GRANITE_HEADS)
     g_chunk_t = time_flash_chunk(fp_ops, fp_ref, flush, heads=GRANITE_HEADS)
+    wide_t = {name: time_flash_wide(fp_ops, fp_ref, flush, name) for name in WIDE_SHAPES}
     del flush
     torch.cuda.empty_cache()
 
@@ -1404,6 +1851,20 @@ def main() -> int:
     print(f"after phases 1-2: torch.cuda.memory_allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     moe = gateway_path(fp_ops, pa_ops, get_config("granite-moe-3b-a800m"))
+    torch.cuda.empty_cache()
+    print(f"after phase 3: torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    api = {name: model_api_path(fp_ops, pa_ops, name) for name in MODEL_API_RUNS}
+    for name, r in api.items():
+        w = r["witness"]
+        print(f"model_api summary {name}: flash launches per prefill by (window, head_dim) "
+              f"{r['flash_by_window_hd']}, {r['flash_launches']} in the phase, 0 paged; "
+              f"prefill {r['prefill_ms']:.2f} ms host / {r['prefill_busy_ms']:.2f} ms device; "
+              f"decode_step {r['decode_ms']:.2f} ms host / {r['decode_busy_ms']:.2f} ms device; "
+              f"kernel vs plain logits {max(r['logits_dist']):.3e} at most, {r['excused']} "
+              f"picks excused; witness {w['kernel']:.3e} / {w['plain']:.3e} = "
+              f"{w['ratio']:.3f} (limit {WITNESS_RATIO_TOL}); planted faults "
+              + ", ".join(f"{f} {r:.3f}" for f, r in w["faults"].items()))
     # launches by path: phase 1 (co-located) and phase 2 (default
     # configuration); flash launches split into whole prompts and chunks
     whole_n = {"colocated": colocated["flash_prefill_whole_prompt"],
@@ -1450,6 +1911,19 @@ def main() -> int:
          "launches_at_q_offset": moe["flash_prefill_at_offset"],
          "max_abs_err": g_chunk_err, **g_chunk_t},
     ]
+    # the model_api phase's heads: gemma2-2b (hd 256, its local layers'
+    # window and softcap) and phi-3-vision-4.2b (hd 96)
+    for name, (heads, kv, window, cap) in WIDE_SHAPES.items():
+        n = api[name]["flash_launches"]
+        kernels.append(
+            {"name": f"flash_prefill ({name})",
+             "shape": f"B=2 S={max(kv)} kv_lens={kv} heads={heads[0]}/{heads[1]} "
+                      f"hd={heads[2]} window={window} softcap={cap}",
+             "use": "whole prompt (Transformer.prefill)", **flash, "launches": n,
+             "launches_by_path": {"model_api": n},
+             "launches_per_prefill": {f"window={w} hd={hd}": c for (w, hd), c in
+                                      api[name]["flash_by_window_hd"].items()},
+             "max_abs_err": wide_err[name], **wide_t[name]})
     for k in kernels:
         k["x_library"] = k["ms"] / k["library_ms"]
     print(json.dumps({"kernels": kernels}))

@@ -50,8 +50,9 @@ from repro_torch.engine.kv_cache import (PagedKVCache, to_device, transfer_check
 from repro_torch.kernels import require_device, resolve_backend
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from repro_torch.models import attention, layers, moe as moe_lib
-from repro_torch.models.transformer import Transformer, _norm
+from repro_torch.models import attention, layers
+from repro_torch.models.transformer import (Transformer, _norm, _tree_index, block_prefill,
+                                            block_tail)
 
 class EngineCrashedError(RuntimeError):
     """Raised when a dispatch is attempted on a crashed engine."""
@@ -329,32 +330,20 @@ class ServingEngine:
         return max(8, 1 << (max(n, 1) - 1).bit_length())
 
     def _layer_tail(self, lp, x, a):
-        """Everything after attention's out-projection ``a``: post-norm,
-        residual, norm, MLP or MoE, residual. Shared by every layer body. An
-        MoE layer routes all rows of ``x`` together, as the reference does:
-        the padded prompt bucket, the padded decode bucket, or a chunk's
-        bucket on its own. Capacity couples those rows, in token order."""
-        cfg = self.cfg
-        if cfg.use_post_norm:
-            a = _norm(cfg, lp["post_ln1"], a)
-        x = x + a
-        h = _norm(cfg, lp["ln2"], x)
-        if cfg.is_moe:
-            m = moe_lib.moe_dispatch(lp["moe"], h, cfg, groups=1)[0]
-        else:
-            m = layers.mlp(lp["mlp"], h, cfg.mlp_act)
-        if cfg.use_post_norm:
-            m = _norm(cfg, lp["post_ln2"], m)
-        return x + m
+        """The model's ``block_tail`` after attention's out-projection ``a``,
+        shared by every layer body. An MoE layer routes all rows of ``x``
+        together (one group), as the reference engine does: the padded
+        prompt bucket, the padded decode bucket, or a chunk's bucket on its
+        own. Capacity couples those rows, in token order."""
+        return block_tail(lp, x, a, self.cfg, moe_groups=1)[0]
 
     def _layer_fn(self, lp, x, positions, kv_lens):
-        """Whole-prompt prefill layer; returns (x, k, v)."""
-        cfg = self.cfg
-        h = _norm(cfg, lp["ln1"], x)
-        a, (k, v) = attention.attn_prefill(
-            lp["attn"], h, positions, cfg, window=cfg.sliding_window,
-            kv_lens=kv_lens, backend=self.backend)
-        return self._layer_tail(lp, x, a), k, v
+        """Whole-prompt prefill layer (the model's ``block_prefill``);
+        returns (x, k, v)."""
+        x, (k, v), _ = block_prefill(lp, x, positions, self.cfg,
+                                     window=self.cfg.sliding_window, kv_lens=kv_lens,
+                                     backend=self.backend, moe_groups=1)
+        return x, k, v
 
     def _decode_layer(self, li: int, x, d: "_DecodeRows"):
         """One layer of one decode iteration, the body that ``decode_step``,
@@ -1056,9 +1045,3 @@ class ServingEngine:
         self.cache.import_request(rid, k, v, n)
         req.phase = Phase.DECODING
 
-
-def _tree_index(tree, i: int):
-    """Layer ``i`` of a params dict whose leaves are stacked on axis 0."""
-    if isinstance(tree, dict):
-        return {k: _tree_index(v, i) for k, v in tree.items()}
-    return tree[i]

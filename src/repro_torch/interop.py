@@ -1,8 +1,10 @@
 """Weights carried across from the JAX package.
 
 ``params_from_jax`` takes the JAX params pytree (``repro`` Transformer.init,
-nested dicts with the layers stacked on axis 0) as numpy arrays and returns
-the port's params: the same names and layout, as torch tensors. This module
+nested dicts with the layers stacked on axis 0, or on (L/2, 2) for gemma2's
+local/global pairs; a tied embedding and no ``lm_head`` where the config
+ties them) as numpy arrays and returns the port's params: the same names and
+layout, leaf for leaf, as torch tensors. This module
 imports nothing of JAX: the caller converts leaves with ``np.asarray``.
 """
 from __future__ import annotations

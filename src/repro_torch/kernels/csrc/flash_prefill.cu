@@ -8,6 +8,11 @@
 // with an optional tanh logit softcap. Key tiles above the causal diagonal or
 // left of the window are skipped.
 //
+// Head dims 64, 96, 128 and 256, each an instantiation of its own. Tiles are
+// cut into column panels of one swizzle span: 64 columns (128-byte rows,
+// 128-byte swizzle) where hd is a multiple of 64, else 32 columns (64-byte
+// rows, 64-byte swizzle), so hd 96 is three panels and is not padded.
+//
 // What bounds it on this card: at a prompt of 512 tokens (qwen2.5-7b widths,
 // Hq = 28, Hkv = 4, hd = 128) the bytes of q, K, V and the output (8.4 MB,
 // 2.5 us at 3.35 TB/s) outweigh the causal products (1.9 GFLOP, 1.9 us at the
@@ -16,6 +21,10 @@
 // 2048 tokens, 30 us at 989 TFLOP/s) and only wgmma reaches that rate.
 //
 // What the design does about it:
+//  * at hd 256 the O accumulator alone is 128 f32 registers a thread: the
+//    block keeps the 64-key tile and one consumer warpgroup, is allowed up
+//    to 255 registers (one block per SM; its 160 KB of Q and K/V ring leave
+//    no room for a second anyway);
 //  * one block per (query tile, KV head, batch row) packs the G query heads of
 //    the KV head into its 64 rows (row = position * G + head: 9 positions x 7
 //    heads for qwen2.5-7b), so each K/V tile is fetched once per group, not
@@ -45,8 +54,9 @@
 //  * a row that sees no key at all (a padded query past kv_lens[b] plus the
 //    window, or kv_lens[b] = 0) gets what the plain version gives it: its
 //    scores are all masked, so its softmax is uniform over all Skv keys and
-//    the row is the mean of V, read from global memory after the epilogue by
-//    an out-of-line function. Only such rows take that path.
+//    the row is the mean of V. A block with such rows computes that mean
+//    once, all consumers together, after the epilogue (an out-of-line
+//    function); other blocks pay one barrier for it.
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,15 +67,21 @@ namespace {
 constexpr int kBN = 64;      // keys per tile
 constexpr int kStages = 2;   // depth of the K/V ring
 constexpr int kMaxGP = 16;   // query heads packed into one block
+constexpr int kConsumers = 128;  // one consumer warpgroup
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Smem {
-  static constexpr int kPanels = HD / 64;  // 128-byte column panels (the swizzle width)
-  static constexpr int kRows = 64;        // query rows of a block: one warpgroup
-  static constexpr uint32_t q_panel = kRows * 128;
-  static constexpr uint32_t kv_panel = kBN * 128;
+  static constexpr int kPW = HD % 64 == 0 ? 64 : 32;  // columns of a panel (the swizzle span)
+  static constexpr int kRB = 2 * kPW;                  // bytes of a panel row: 128 or 64
+  static constexpr int kPanels = HD / kPW;
+  static_assert(HD % kPW == 0 && HD <= 256, "head_dim");
+  static constexpr uint64_t kSwizzle = kRB == 128 ? 1 : 2;  // descriptor mode: 128 B, 64 B
+  static constexpr uint32_t kAtom = 8 * kRB;  // 8 rows: the swizzle pattern's period
+  static constexpr int kRows = 64;            // query rows of a block: one warpgroup
+  static constexpr uint32_t q_panel = kRows * kRB;
+  static constexpr uint32_t kv_panel = kBN * kRB;
   static constexpr uint32_t q = 0;                                     // [kPanels][kRows][64]
   static constexpr uint32_t k = q + kPanels * q_panel;                 // [kStages][kPanels][kBN][64]
   static constexpr uint32_t v = k + kStages * kPanels * kv_panel;      // [kStages][kPanels][kBN][64]
@@ -120,11 +136,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, all in 16-byte units, and the swizzle mode (1: 128 B, 2: 64 B).
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                            uint64_t mode) {
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+// Whether `pred` holds on any consumer thread (named barrier 1, consumers only).
+__device__ __forceinline__ bool consumers_any(bool pred) {
+  uint32_t any;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\nbar.red.or.pred p, 1, %2, q;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(any)
+      : "r"((uint32_t)pred), "n"(kConsumers)
+      : "memory");
+  return any != 0;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -167,21 +196,42 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
 }
 
 // d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 96, f32) += A (64 x 16, bf16 in registers) * B (16 x 96, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -190,27 +240,85 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// The output row of a query that sees no key, as the plain version gives it:
-// all its scores are masked alike, so its softmax is uniform over all Skv
-// keys and the row is the mean of V. `op` and `vr` point at this thread's
-// first two columns. Out of line, so that this rare path costs the main
+// d (64 x 256, f32) += A (64 x 16, bf16 in registers) * B (16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The mean of V over all Skv keys of one (batch row, KV head), into `mean`
+// (HD floats): what the plain version gives a query that sees no key, since
+// all its scores are masked alike and its softmax is uniform. `vb` points at
+// key 0 of the row and head. Each consumer sums column pairs over the keys,
+// four keys in flight. Out of line, so that this rare path costs the main
 // loop no registers.
 template <int HD>
-__device__ __noinline__ void write_mean_v(__nv_bfloat16* op, const __nv_bfloat16* vr,
-                                          long long v_ss, int Skv) {
-  for (int j = 0; j < HD / 8; ++j) {
-    float x0 = 0.f, x1 = 0.f;
-    for (int key = 0; key < Skv; ++key) {
-      const float2 x =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vr + key * v_ss + j * 8));
-      x0 += x.x;
-      x1 += x.y;
+__device__ __noinline__ void mean_v(float* mean, const __nv_bfloat16* vb, long long v_ss,
+                                    int Skv, int tid) {
+  for (int c = 2 * tid; c < HD; c += 2 * kConsumers) {
+    float x0[4] = {0.f, 0.f, 0.f, 0.f}, x1[4] = {0.f, 0.f, 0.f, 0.f};
+    int key = 0;
+    for (; key + 4 <= Skv; key += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(vb + (key + u) * v_ss + c));
+        x0[u] += x.x;
+        x1[u] += x.y;
+      }
     }
-    *reinterpret_cast<__nv_bfloat162*>(op + j * 8) = __floats2bfloat162_rn(x0 / Skv, x1 / Skv);
+    for (; key < Skv; ++key) {
+      const float2 x =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vb + key * v_ss + c));
+      x0[0] += x.x;
+      x1[0] += x.y;
+    }
+    mean[c] = (x0[0] + x0[1] + x0[2] + x0[3]) / Skv;
+    mean[c + 1] = (x1[0] + x1[1] + x1[2] + x1[3]) / Skv;
   }
 }
 
@@ -220,7 +328,7 @@ __device__ __noinline__ void write_mean_v(__nv_bfloat16* op, const __nv_bfloat16
 // pairs: position-major (row = pos * GP + g) when the q map's S dim is outer
 // to its H dim, else head-major (row = g * qbox_s + pos).
 template <int HD>
-__global__ void __launch_bounds__(160, 2) flash_prefill_kernel(
+__global__ void __launch_bounds__(160, HD > 128 ? 1 : 2) flash_prefill_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
     const __nv_bfloat16* __restrict__ v, long long v_sb, long long v_ss, long long v_sh,
@@ -230,7 +338,6 @@ __global__ void __launch_bounds__(160, 2) flash_prefill_kernel(
   using L = Smem<HD>;
   constexpr int kPanels = L::kPanels;
   constexpr int NS = kBN / 2;  // score registers per thread
-  constexpr int kConsumers = 128;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (base - static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)));
@@ -272,21 +379,21 @@ __global__ void __launch_bounds__(160, 2) flash_prefill_kernel(
   if (warp == 4) {
     // ================= producer: one lane issues every copy =================
     if (lane == 0) {
-      mbar_expect_tx(q_full, kPanels * GP * qbox_s * 128);
+      mbar_expect_tx(q_full, kPanels * GP * qbox_s * L::kRB);
       for (int p = 0; p < kPanels; ++p)
-        tma_load(base + L::q + p * L::q_panel, &q_map, q_full, q_perm, p * 64, gbase, p0, b);
+        tma_load(base + L::q + p * L::q_panel, &q_map, q_full, q_perm, p * L::kPW, gbase, p0, b);
       for (int i = 0; i < ntiles; ++i) {
         const int st = i % kStages, round = i / kStages;
         if (round > 0) mbar_wait(empty + 8 * st, (round - 1) & 1);
         const int k0 = (t_begin + i) * kBN;
-        mbar_expect_tx(k_full + 8 * st, kPanels * kv_box * 128);
+        mbar_expect_tx(k_full + 8 * st, kPanels * kv_box * L::kRB);
         for (int p = 0; p < kPanels; ++p)
           tma_load(base + L::k + (st * kPanels + p) * L::kv_panel, &k_map, k_full + 8 * st,
-                   k_perm, p * 64, hk, k0, b);
-        mbar_expect_tx(v_full + 8 * st, kPanels * kv_box * 128);
+                   k_perm, p * L::kPW, hk, k0, b);
+        mbar_expect_tx(v_full + 8 * st, kPanels * kv_box * L::kRB);
         for (int p = 0; p < kPanels; ++p)
           tma_load(base + L::v + (st * kPanels + p) * L::kv_panel, &v_map, v_full + 8 * st,
-                   v_perm, p * 64, hk, k0, b);
+                   v_perm, p * L::kPW, hk, k0, b);
       }
     }
     return;
@@ -321,11 +428,14 @@ __global__ void __launch_bounds__(160, 2) flash_prefill_kernel(
     const uint32_t k_addr = base + L::k + st * kPanels * L::kv_panel;
     mbar_wait(k_full + 8 * st, (i / kStages) & 1);
     wgmma_fence();
+    constexpr int kSteps = L::kPW / 16;  // k-steps of 16 columns in a panel
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks) {
-      const uint32_t off = (ks % 4) * 32;  // 16 columns into the swizzled panel
-      const uint64_t dq = desc_sw128(q_addr + (ks / 4) * L::q_panel + off, 16, 1024);
-      const uint64_t dk = desc_sw128(k_addr + (ks / 4) * L::kv_panel + off, 16, 1024);
+      const uint32_t off = (ks % kSteps) * 32;  // 16 columns into the swizzled panel
+      const uint64_t dq =
+          desc_sw(q_addr + (ks / kSteps) * L::q_panel + off, 16, L::kAtom, L::kSwizzle);
+      const uint64_t dk =
+          desc_sw(k_addr + (ks / kSteps) * L::kv_panel + off, 16, L::kAtom, L::kSwizzle);
       wgmma_ss_n64(acc, dq, dk, ks > 0);
     }
     wgmma_commit();
@@ -405,10 +515,12 @@ __global__ void __launch_bounds__(160, 2) flash_prefill_kernel(
       // zero the V rows at and past kv_len (whatever lies there, 0 x it
       // must stay 0), then make the stores visible to wgmma
       const int first = kv_len - k0;
-      for (int idx = threadIdx.x; idx < kPanels * (kBN - first) * 8; idx += kConsumers) {
-        const int p = idx / ((kBN - first) * 8), rem = idx % ((kBN - first) * 8);
+      constexpr int kChunks = L::kRB / 16;  // 16-byte chunks of a panel row
+      for (int idx = threadIdx.x; idx < kPanels * (kBN - first) * kChunks; idx += kConsumers) {
+        const int p = idx / ((kBN - first) * kChunks), rem = idx % ((kBN - first) * kChunks);
         *reinterpret_cast<uint4*>(smem + (v_addr - base) + p * L::kv_panel +
-                                  (first + rem / 8) * 128 + (rem % 8) * 16) = make_uint4(0, 0, 0, 0);
+                                  (first + rem / kChunks) * L::kRB + (rem % kChunks) * 16) =
+            make_uint4(0, 0, 0, 0);
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -416,11 +528,9 @@ __global__ void __launch_bounds__(160, 2) flash_prefill_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint64_t dv = desc_sw128(v_addr + kk * 16 * 128, L::kv_panel, 1024);
-      if constexpr (HD == 128)
-        wgmma_rs_n128(o, pa[kk], dv);
-      else
-        wgmma_rs_n64(o, pa[kk], dv);
+      // 16 keys down; the panels side by side (leading offset) make up n = HD
+      const uint64_t dv = desc_sw(v_addr + kk * 16 * L::kRB, L::kv_panel, L::kAtom, L::kSwizzle);
+      wgmma_rs(o, pa[kk], dv);
     }
     wgmma_commit();
     if (i + 1 < ntiles) issue_s(s, i + 1);
@@ -440,13 +550,23 @@ __global__ void __launch_bounds__(160, 2) flash_prefill_kernel(
       *reinterpret_cast<__nv_bfloat162*>(op + j * 8) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
-  // rows that saw no key (l = 0, written as 0 above) get the mean of V
+  // rows that saw no key (l = 0, written as 0 above) get the mean of V,
+  // computed once for the block into the Q tile's space (no longer read)
+  const bool keyless = (live[0] && l[0] == 0.f) || (live[1] && l[1] == 0.f);
+  if (consumers_any(keyless)) {
+    float* mean = reinterpret_cast<float*>(smem + L::q);
+    mean_v<HD>(mean, v + b * v_sb + (long long)hk * v_sh, v_ss, Skv, threadIdx.x);
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    if (live[r] && l[r] == 0.f)
-      write_mean_v<HD>(out + b * o_sb + (long long)(p0 + prow[r]) * o_ss +
-                           (long long)(gbase + hrow[r]) * o_sh + 2 * t4,
-                       v + b * v_sb + (long long)hk * v_sh + 2 * t4, v_ss, Skv);
+    for (int r = 0; r < 2; ++r) {
+      if (!live[r] || l[r] != 0.f) continue;
+      __nv_bfloat16* op = out + b * o_sb + (long long)(p0 + prow[r]) * o_ss +
+                          (long long)(gbase + hrow[r]) * o_sh + 2 * t4;
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + j * 8) =
+            __floats2bfloat162_rn(mean[j * 8 + 2 * t4], mean[j * 8 + 2 * t4 + 1]);
+    }
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -470,10 +590,11 @@ EncodeTiled encoder() {
 }
 
 // A 4-D map over a bf16 tensor of shape (B, S, H, hd) with element strides
-// (sb, ss, sh, 1): dims (hd, then H, S, B ordered by stride), box (64, box_h,
-// box_s, 1), 128-byte swizzle. *perm gets the slot of H, S and B.
+// (sb, ss, sh, 1): dims (hd, then H, S, B ordered by stride), box (box_x,
+// box_h, box_s, 1), rows of box_x columns swizzled over their 2 * box_x bytes
+// (128 or 64). *perm gets the slot of H, S and B.
 int make_map(CUtensorMap* map, const void* ptr, int hd, int H, int S, int B, long long sh,
-             long long ss, long long sb, int box_h, int box_s, int* perm) {
+             long long ss, long long sb, int box_x, int box_h, int box_s, int* perm) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   struct Dim {
@@ -491,14 +612,15 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int H, int S, int B, lon
     }
   const cuuint64_t dims[4] = {(cuuint64_t)hd, d[0].n, d[1].n, d[2].n};
   const cuuint64_t strides[3] = {d[0].stride * 2, d[1].stride * 2, d[2].stride * 2};
-  const cuuint32_t box[4] = {64, d[0].box, d[1].box, d[2].box};
+  const cuuint32_t box[4] = {(cuuint32_t)box_x, d[0].box, d[1].box, d[2].box};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   int slot[3];
   for (int i = 0; i < 3; ++i) slot[d[i].which] = i + 1;
   *perm = slot[0] | (slot[1] << 2) | (slot[2] << 4);
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        box_x == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -521,9 +643,9 @@ int launch(const void* q, const void* k, const void* v, void* out, const void* k
   const int kv_box = Skv < kBN ? Skv : kBN;
   CUtensorMap qm, km, vm;
   int qp, kp, vp, err;
-  if ((err = make_map(&qm, q, HD, Hq, Sq, B, st[2], st[1], st[0], GP, qbox_s, &qp)) ||
-      (err = make_map(&km, k, HD, Hkv, Skv, B, st[5], st[4], st[3], 1, kv_box, &kp)) ||
-      (err = make_map(&vm, v, HD, Hkv, Skv, B, st[8], st[7], st[6], 1, kv_box, &vp)))
+  if ((err = make_map(&qm, q, HD, Hq, Sq, B, st[2], st[1], st[0], L::kPW, GP, qbox_s, &qp)) ||
+      (err = make_map(&km, k, HD, Hkv, Skv, B, st[5], st[4], st[3], L::kPW, 1, kv_box, &kp)) ||
+      (err = make_map(&vm, v, HD, Hkv, Skv, B, st[8], st[7], st[6], L::kPW, 1, kv_box, &vp)))
     return err;
   const dim3 grid((Sq + npos - 1) / npos, Hkv * (G / GP), B);
   flash_prefill_kernel<HD><<<grid, 160, L::alloc, s>>>(
@@ -564,5 +686,11 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v, v
   if (hd == 64)
     return launch_hd<64>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
                          window, scale, softcap, s);
+  if (hd == 96)
+    return launch_hd<96>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
+                         window, scale, softcap, s);
+  if (hd == 256)
+    return launch_hd<256>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
+                          window, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -110,3 +110,13 @@ def mlp(p, x, act: str = "silu"):
 
 def softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap else x
+
+
+def cross_entropy_loss(logits, labels):
+    """Mean token cross-entropy: logits (..., V) in any dtype, computed in
+    f32; labels (...) integer, -1 = ignored."""
+    logits = logits.float()
+    valid = (labels >= 0).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0] - logz
+    return -(ll * valid).sum() / valid.sum().clamp(min=1.0)

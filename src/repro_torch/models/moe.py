@@ -77,7 +77,7 @@ def moe_mlp(p, x, cfg: ModelConfig, *, groups: int = 16):
     """x: (B, S, d) -> ((B, S, d), aux): ``moe_dispatch`` plus the Switch
     load-balance loss, which training needs and serving does not."""
     out, probs, eidx = moe_dispatch(p, x, cfg, groups=groups)
-    return out, _aux_loss(probs, eidx, cfg.num_experts)
+    return out, aux_loss(probs, eidx, cfg.num_experts)
 
 
 def moe_dispatch(p, x, cfg: ModelConfig, *, groups: int = 16):
@@ -128,7 +128,7 @@ def moe_dispatch(p, x, cfg: ModelConfig, *, groups: int = 16):
     return out.reshape(B, S, d).to(x.dtype), probs, eidx
 
 
-def _aux_loss(probs, eidx, E: int):
+def aux_loss(probs, eidx, E: int):
     """Switch-style load-balance auxiliary loss (mean over groups)."""
     top1 = (eidx[..., 0, None] == torch.arange(E, device=eidx.device)).float()
     frac_tokens = top1.mean(dim=1)                               # top-1 assignment

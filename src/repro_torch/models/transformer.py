@@ -1,11 +1,28 @@
-"""Decoder-only transformer (dense and MoE families): parameters and the
-pieces the serving engine composes per layer.
+"""Decoder-only transformer (dense, MoE and VLM families), the port of
+``repro.models.transformer``, with the reference's API:
+
+  init(gen) -> params
+  prefill(params, batch, cache_len) -> (last-token logits (B,V), cache|None)
+  init_cache(batch_size, cache_len, prefilled_len) -> zero cache
+  decode_step(params, tokens (B,), cache) -> (logits (B,V), cache)
+  loss(params, batch) -> scalar
 
 The parameter pytree matches ``repro.models.transformer.Transformer.init``:
-a nested dict whose ``layers`` leaves are stacked on axis 0, so weights made
-by the JAX package carry across as a straight copy (``repro_torch.interop``).
-The engine runs the layer stack itself (``engine.ServingEngine``), so this
-module has no whole-model forward.
+nested dicts whose ``layers`` leaves are stacked on axis 0, or on (L/2, 2)
+for gemma2's local/global alternation, so weights made by the JAX package
+carry across as a straight copy (``repro_torch.interop``). The reference's
+``lax.scan`` over the stack is a Python loop here. The layer body
+(``block_prefill``, ``block_tail``) is the one the serving engine
+(``engine.ServingEngine``) composes over its paged pools.
+
+Prefill attention runs the flash-prefill kernel on a CUDA device (its plain
+version on the CPU, or with ``backend="ref"``). Decode attends over a
+contiguous ring-buffer cache in plain torch, as the reference does in XLA
+with no Pallas kernel, and writes the new token's K/V into that cache in
+place. ``loss`` attends as the reference trains: with the full-score plain
+version up to ``NAIVE_TRAIN_MAX_SEQ`` positions, and by key blocks past that
+(``attention.blockwise_attention``); never with the kernel, which has no
+backward.
 """
 from __future__ import annotations
 
@@ -14,10 +31,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels import BACKENDS, require_device
 from repro_torch.models import attention, layers, moe as moe_lib
-from repro_torch.models.config import AUDIO, ModelConfig
+from repro_torch.models.config import AUDIO, VLM, ModelConfig
 
 Params = Any
+
+#: the longest sequence ``loss`` attends over with full scores (the
+#: reference's ``_train_impl``); longer ones go by key blocks
+NAIVE_TRAIN_MAX_SEQ = 8192
 
 
 def _norm_init(cfg: ModelConfig, d: int, device, stack: tuple = ()):
@@ -29,6 +51,13 @@ def _norm_init(cfg: ModelConfig, d: int, device, stack: tuple = ()):
 
 def _norm(cfg: ModelConfig, p, x):
     return layers.rmsnorm(p, x, cfg.norm_eps)
+
+
+def _tree_index(tree, i: int):
+    """Entry ``i`` of a params dict whose leaves are stacked on axis 0."""
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
@@ -51,14 +80,71 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
     return p
 
 
-class Transformer:
-    """Dense / MoE decoder-only model."""
+def block_tail(p, x, a, cfg: ModelConfig, *, moe_groups: int = 16):
+    """Everything after attention's out-projection ``a``: post-norm,
+    residual, norm, MLP or MoE, residual. An MoE layer routes the rows of
+    ``x`` together, in ``moe_groups`` groups of tokens. Returns (x, routing):
+    the MoE dispatch's (router probs, expert ids), which the load-balance
+    loss reads, or None for a dense layer."""
+    if cfg.use_post_norm:
+        a = _norm(cfg, p["post_ln1"], a)
+    x = x + a
+    h = _norm(cfg, p["ln2"], x)
+    routing = None
+    if cfg.is_moe:
+        m, probs, eidx = moe_lib.moe_dispatch(p["moe"], h, cfg, groups=moe_groups)
+        routing = (probs, eidx)
+    else:
+        m = layers.mlp(p["mlp"], h, cfg.mlp_act)
+    if cfg.use_post_norm:
+        m = _norm(cfg, p["post_ln2"], m)
+    return x + m, routing
 
-    def __init__(self, cfg: ModelConfig):
-        if cfg.local_global:
-            raise NotImplementedError("local/global alternation (gemma2) is "
-                                      "not ported yet: ROADMAP queue 1")
+
+def block_prefill(p, x, positions, cfg: ModelConfig, *, window: int, kv_lens=None,
+                  backend: str = "cuda", moe_groups: int = 16):
+    """One block over whole sequences x (B, S, d). Returns (x, (k, v)
+    post-rope (B, S, Hkv, hd), routing)."""
+    h = _norm(cfg, p["ln1"], x)
+    a, kv = attention.attn_prefill(p["attn"], h, positions, cfg, window=window,
+                                   kv_lens=kv_lens, backend=backend)
+    x, routing = block_tail(p, x, a, cfg, moe_groups=moe_groups)
+    return x, kv, routing
+
+
+def block_decode(p, x, positions, cfg: ModelConfig, cache_k, cache_v, lengths, *,
+                 moe_groups: int = 16):
+    """x (B, 1, d): writes the current token's K/V into the (ring) caches
+    (B, C, Hkv, hd) in place, then attends over them. Returns x."""
+    h = _norm(cfg, p["ln1"], x)
+    q, k_new, v_new = attention._project_qkv(p["attn"], h, cfg, positions[:, None],
+                                             rope=not cfg.is_encoder_decoder)
+    attention.write_decode_cache(cache_k, cache_v, k_new, v_new, positions)
+    a = attention.attn_decode(p["attn"], q, cache_k, cache_v, lengths, cfg)
+    return block_tail(p, x, a, cfg, moe_groups=moe_groups)[0]
+
+
+class Transformer:
+    """Dense / MoE / VLM decoder-only model.
+
+    ``backend``: ``"auto"`` or ``"cuda"`` send prefill attention to the
+    flash-prefill wrapper, which launches the kernel on a CUDA tensor and
+    runs its plain version on a CPU tensor; ``"ref"`` asks for the plain
+    version on any device by name. ``cache_dtype`` (e.g.
+    ``"float8_e4m3fn"``) stores the decode cache in another dtype; attention
+    reads it in f32."""
+
+    def __init__(self, cfg: ModelConfig, *, backend: str = "auto", moe_groups: int = 16,
+                 long_context: bool = False, cache_dtype: str | None = None):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if cfg.local_global and cfg.num_layers % 2:
+            raise ValueError("local/global alternation needs an even number of layers")
         self.cfg = cfg
+        self.backend = "ref" if backend == "ref" else "cuda"
+        self.moe_groups = moe_groups
+        self.long_context = long_context
+        self.cache_dtype = getattr(torch, cache_dtype) if cache_dtype else cfg.torch_dtype
 
     # --- parameters -------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
@@ -66,9 +152,10 @@ class Transformer:
         and scales (its random bits differ: tests carry JAX weights across)."""
         cfg = self.cfg
         dt = cfg.torch_dtype
+        stack = (cfg.num_layers // 2, 2) if cfg.local_global else (cfg.num_layers,)
         p = {
             "embed": layers._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt),
-            "layers": init_block(gen, cfg, stack=(cfg.num_layers,)),
+            "layers": init_block(gen, cfg, stack=stack),
             "final_norm": _norm_init(cfg, cfg.d_model, gen.device),
         }
         if not cfg.tie_embeddings:
@@ -86,3 +173,126 @@ class Transformer:
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
         logits = _norm(self.cfg, params["final_norm"], x) @ head
         return layers.softcap(logits.float(), self.cfg.final_logit_softcap)
+
+    def _windows(self) -> list[int]:
+        """Attention window of each layer class: (local, global) for gemma2,
+        else one class."""
+        cfg = self.cfg
+        classes = 2 if cfg.local_global else 1
+        return [cfg.layer_window(i, self.long_context) for i in range(classes)]
+
+    def _cache_sizes(self, seq_len: int) -> list[int]:
+        return [min(w, seq_len) if w else seq_len for w in self._windows()]
+
+    def _layers(self, params):
+        """(layer params, window class, index within the class) of every
+        layer, in order: gemma2's stack (L/2, 2) alternates local, global."""
+        lp = params["layers"]
+        if not self.cfg.local_global:
+            for i in range(self.cfg.num_layers):
+                yield _tree_index(lp, i), 0, i
+            return
+        for i in range(self.cfg.num_layers // 2):
+            pair = _tree_index(lp, i)
+            for c in (0, 1):
+                yield _tree_index(pair, c), c, i
+
+    # --- forward over the full sequence ------------------------------------
+    def _forward(self, params, x, positions, kv_lens, cache_len: int, backend: str):
+        """Runs all layers; returns (hidden, caches, routings): per window
+        class the stacked decode caches (k, v) of shape (layers of the class,
+        B, C, Hkv, hd) when ``cache_len`` > 0, and each MoE layer's routing."""
+        windows = self._windows()
+        sizes = self._cache_sizes(cache_len) if cache_len else [0] * len(windows)
+        kvs = [[] for _ in windows]
+        routings = []
+        for lp, c, _ in self._layers(params):
+            x, (k, v), routing = block_prefill(
+                lp, x, positions, self.cfg, window=windows[c], kv_lens=kv_lens,
+                backend=backend, moe_groups=self.moe_groups)
+            if sizes[c]:
+                kvs[c].append(attention.write_prefill_cache(k, v, sizes[c],
+                                                            dtype=self.cache_dtype))
+            if routing is not None:
+                routings.append(routing)
+        caches = [(torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
+                  for kv in kvs] if cache_len else None
+        return x, caches, routings
+
+    def _inputs(self, params, batch):
+        """Embedded tokens with a VLM's ``frontend_embeds`` first, and their
+        positions. Returns (x (B, S, d), positions (B, S), frontend length)."""
+        x = self._embed(params, batch["tokens"])
+        T = 0
+        if self.cfg.family == VLM and "frontend_embeds" in batch:
+            fe = batch["frontend_embeds"].to(device=x.device, dtype=x.dtype)
+            T = fe.shape[1]
+            x = torch.cat([fe, x], dim=1)   # image tokens first
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        return x, positions, T
+
+    # --- public API ---------------------------------------------------------
+    def prefill(self, params, batch, cache_len: int = 0):
+        """batch: tokens (B,S) [+ frontend_embeds (B,T,d)] [+ lengths (B,),
+        counted over the frontend tokens too]. Returns (last-token logits
+        (B,V) f32, cache or None)."""
+        x, positions, _ = self._inputs(params, batch)
+        B, S = x.shape[:2]
+        kv_lens = batch.get("lengths")
+        kv_lens = (torch.full((B,), S, dtype=torch.int32, device=x.device) if kv_lens is None
+                   else torch.as_tensor(kv_lens, dtype=torch.int32, device=x.device))
+        x, caches, _ = self._forward(params, x, positions, kv_lens, cache_len, self.backend)
+        last = x[torch.arange(B, device=x.device), kv_lens.long() - 1]
+        logits = self._logits(params, last)
+        return logits, (self._pack_cache(caches, kv_lens) if cache_len else None)
+
+    def _pack_cache(self, caches, lengths):
+        cache = {"pos": lengths.to(torch.int32)}
+        for i, (k, v) in enumerate(caches):
+            cache[f"k{i}"], cache[f"v{i}"] = k, v
+        return cache
+
+    def init_cache(self, batch_size: int, cache_len: int, prefilled_len: int = 0, *,
+                   device="cuda"):
+        """A zero cache, as a prefill of ``prefilled_len`` tokens would leave
+        its shapes, on ``device``."""
+        cfg = self.cfg
+        dev = require_device(device)
+        cache = {"pos": torch.full((batch_size,), prefilled_len, dtype=torch.int32,
+                                   device=dev)}
+        L = cfg.num_layers // (2 if cfg.local_global else 1)
+        for i, cs in enumerate(self._cache_sizes(cache_len)):
+            shape = (L, batch_size, cs, cfg.num_kv_heads, cfg.head_dim_)
+            cache[f"k{i}"] = torch.zeros(shape, dtype=self.cache_dtype, device=dev)
+            cache[f"v{i}"] = torch.zeros(shape, dtype=self.cache_dtype, device=dev)
+        return cache
+
+    def decode_step(self, params, tokens, cache):
+        """tokens (B,) integer. Writes each layer's new K/V into ``cache``'s
+        tensors in place and returns (logits (B,V) f32, the cache with its
+        positions advanced by one)."""
+        positions = cache["pos"]
+        lengths = positions + 1
+        x = self._embed(params, tokens[:, None])
+        for lp, c, i in self._layers(params):
+            x = block_decode(lp, x, positions, self.cfg, cache[f"k{c}"][i],
+                             cache[f"v{c}"][i], lengths, moe_groups=self.moe_groups)
+        logits = self._logits(params, x[:, 0])
+        return logits, {**cache, "pos": positions + 1}
+
+    def loss(self, params, batch):
+        """batch: tokens (B,S), labels (B,S) with -1 ignored [+
+        frontend_embeds (B,T,d), whose positions carry no label]. Mean
+        cross-entropy plus 0.01 x the MoE load-balance loss."""
+        cfg = self.cfg
+        x, positions, T = self._inputs(params, batch)
+        B, S = x.shape[:2]
+        kv_lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        backend = "ref" if S <= NAIVE_TRAIN_MAX_SEQ else "blockwise"
+        x, _, routings = self._forward(params, x, positions, kv_lens, 0, backend)
+        logits = self._logits(params, x[:, T:])
+        ce = layers.cross_entropy_loss(logits, batch["labels"])
+        aux = sum((moe_lib.aux_loss(probs, eidx, cfg.num_experts)
+                   for probs, eidx in routings), torch.zeros((), device=x.device))
+        return ce + 0.01 * aux

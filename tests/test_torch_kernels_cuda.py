@@ -6,8 +6,14 @@ machine that has only PyTorch and a card:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 (``--noconftest`` skips tests/conftest.py, which imports JAX.) Without a
-card the test skips. Tolerance 2e-2: both sides compute in f32 from the same
-bf16 inputs, and the output's one bf16 rounding can land on either side.
+card the ``cuda``-marked tests skip. Tolerance 2e-2, and 1e-2 + 2^-7 |ref|
+at head dims 96 and 256: both sides compute in f32 from the same bf16
+inputs, and the output's one bf16 rounding can land on either side.
+
+A softcap case scales q by CAP_Q_SCALE, so that its scores reach the cap
+(at N(0, 1) scores the cap changes them by 0.2%, and a kernel that skipped
+it would pass), and asserts that the plain version without the cap lies at
+least 10 tolerances away from the one with it.
 """
 import numpy as np
 import pytest
@@ -17,6 +23,16 @@ from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+
+CAP_Q_SCALE = 16.0
+
+
+def _assert_cap_visible(want, uncapped, atol, rtol):
+    """The softcap moves the plain output by at least 10 tolerances."""
+    want = want.float()
+    r = ((uncapped.float() - want).abs() / (atol + rtol * want.abs())).max().item()
+    assert r >= 10, f"the softcap moves the output by only {r:.2f} tolerances"
 
 
 def _paged_inputs(B, Hq, Hkv, hd, page, P, npages, trash_row, seed):
@@ -62,13 +78,18 @@ def test_cuda_kernels_match_plain_versions():
         q, kp, vp = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, kp, vp))
         tables, lengths = torch.from_numpy(tables).to(dev), torch.from_numpy(lengths).to(dev)
         for cap in (0.0, 50.0):
+            qc = (q.float() * CAP_Q_SCALE).bfloat16() if cap else q
             n = pa_ops.paged_attention.launches
-            got = pa_ops.paged_attention(q, kp, vp, tables, lengths, num_kv_heads=4,
+            got = pa_ops.paged_attention(qc, kp, vp, tables, lengths, num_kv_heads=4,
                                          logit_softcap=cap)
-            want = paged_attention_ref(q.reshape(8, 4, 7, 128), kp, vp, tables,
-                                       lengths, logit_softcap=cap).reshape(q.shape)
+            plain = lambda c: paged_attention_ref(  # noqa: E731
+                qc.reshape(8, 4, 7, 128), kp, vp, tables, lengths,
+                logit_softcap=c).reshape(q.shape)
+            want = plain(cap)
             torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
             assert pa_ops.paged_attention.launches == n + 1
+            if cap:
+                _assert_cap_visible(want, plain(0.0), 2e-2, 2e-2)
 
     g = torch.Generator(dev).manual_seed(0)
     qf = torch.randn(2, 200, 28, 128, generator=g, device=dev).bfloat16()
@@ -76,15 +97,18 @@ def test_cuda_kernels_match_plain_versions():
     vf = torch.randn(2, 264, 4, 128, generator=g, device=dev).bfloat16()
     lens = torch.tensor([264, 130], dtype=torch.int32, device=dev)
     for window, cap in ((0, 0.0), (96, 30.0)):
+        qc = (qf.float() * CAP_Q_SCALE).bfloat16() if cap else qf
         n = fp_ops.flash_attention.launches
-        got = fp_ops.flash_attention(qf, kf, vf, kv_lens=lens, q_offset=64,
+        got = fp_ops.flash_attention(qc, kf, vf, kv_lens=lens, q_offset=64,
                                      window=window, logit_softcap=cap)
-        want = flash_prefill_ref(qf.transpose(1, 2), kf.transpose(1, 2),
-                                 vf.transpose(1, 2), kv_len=264, q_offset=64,
-                                 kv_lens=lens, window=window,
-                                 logit_softcap=cap).transpose(1, 2)
+        plain = lambda c: flash_prefill_ref(  # noqa: E731
+            qc.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2), kv_len=264,
+            q_offset=64, kv_lens=lens, window=window, logit_softcap=c).transpose(1, 2)
+        want = plain(cap)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
         assert fp_ops.flash_attention.launches == n + 1
+        if cap:
+            _assert_cap_visible(want, plain(0.0), 2e-2, 2e-2)
 
 
 @pytest.mark.cuda
@@ -173,3 +197,54 @@ def test_cuda_kernels_at_granite_heads():
                                  kv_len=cp * page, q_offset=off, kv_lens=lens).transpose(1, 2)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
         assert fp_ops.flash_attention.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,B,Sq,Skv,off,kv,window,cap", [
+    # gemma2-2b (hd 256): its 6144-token prompt across the 4096 window with
+    # softcap 50, and a 700-token row whose queries past 700 + 4096 see no
+    # key; a chunk at q_offset > 0; a row with kv_lens 0
+    ((8, 4, 256), 2, 6144, 6144, 0, [6144, 700], 4096, 50.0),
+    ((8, 4, 256), 1, 200, 600, 400, [600], 256, 50.0),
+    ((8, 4, 256), 2, 300, 300, 0, [300, 0], 0, 50.0),
+    # phi-3-vision-4.2b (hd 96, G = 1): 1024 image + 512 text tokens; a
+    # window and a softcap on a ragged row; G = 4 at a q_offset
+    ((32, 32, 96), 2, 1536, 1536, 0, [1536, 1536], 0, 0.0),
+    ((32, 32, 96), 2, 300, 300, 0, [300, 77], 96, 30.0),
+    ((16, 4, 96), 2, 200, 264, 64, [264, 130], 0, 0.0),
+])
+def test_cuda_flash_kernel_at_head_dims_96_and_256(heads, B, Sq, Skv, off, kv, window, cap):
+    """The flash kernel's hd 256 and hd 96 instantiations against the plain
+    version, within |err| <= 1e-2 + 2^-7 |ref| (one bf16 rounding of the
+    output, P rounded to bf16 before P @ V), one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = "cuda"
+    Hq, Hkv, hd = heads
+    g = torch.Generator(dev).manual_seed(Sq + hd)
+    q = torch.randn(B, Sq, Hq, hd, generator=g, device=dev)
+    q = (q * CAP_Q_SCALE if cap else q).bfloat16()
+    k = torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).bfloat16()
+    lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    n = fp_ops.flash_attention.launches
+    got = fp_ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off, window=window,
+                                 logit_softcap=cap)
+    plain = lambda c: flash_prefill_ref(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len=Skv,
+        q_offset=off, kv_lens=lens, window=window, logit_softcap=c).transpose(1, 2)
+    want = plain(cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2.0 ** -7)
+    assert fp_ops.flash_attention.launches == n + 1
+    if cap:
+        _assert_cap_visible(want, plain(0.0), 1e-2, 2.0 ** -7)
+
+
+def test_flash_wrapper_refuses_other_head_dims():
+    """A head_dim the kernel was not built for raises before any launch (the
+    check runs on the CPU too); a CPU tensor never reaches the kernel."""
+    q = torch.zeros(1, 8, 2, 80, dtype=torch.bfloat16)
+    lens = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fp_ops._check(q, q, q, lens)
+    assert fp_ops.HEAD_DIMS == (64, 96, 128, 256)
