@@ -74,7 +74,20 @@
    bf16 plain path. Faults planted in what the kernel path hands the kernel
    (window, softcap, score scale, the last 64 keys) show which the gate can
    see; the ones it must see have to read above the limit.
-8. Prints the kernel table as one JSON line (flash prefill at S=512, at
+8. Phase 5 (train): tinyllama-1.1b at full width and depth (22 layers,
+   1.10 B params, bf16, f32 moments, remat on) takes 30 AdamW steps through
+   ``make_train_step`` on 8 x 2048 tokens a step as 2 microbatches, on
+   ``packed_batches`` made before the first step: every loss and grad-norm
+   finite, the loss falls by a predicted margin, every param leaf changes,
+   and neither kernel launches (the reference trains on XLA attention: no
+   backward kernel). It prints the median host wall per step, tokens/s,
+   model FLOPs/s against the bf16 peak, the peak memory, and one step
+   under torch.profiler. Then witnesses at tinyllama's and
+   granite-moe-3b-a800m's full width with 2 layers: an f32 step on the card
+   against the CPU, microbatches 2 against 1, remat on against off (with
+   the peak memory of each) and a checkpoint round trip; then a ``train
+   summary`` line.
+9. Prints the kernel table as one JSON line (flash prefill at S=512, at
    S=2048 and on the chunk shape, the granite rows, and gemma2's and
    phi-3-vision's prefill shapes, each row with its ratio to the library
    call and its launches by path), the card line again, and last
@@ -1800,11 +1813,323 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "tinyllama-1.1b"
+#: global batch of TRAIN_BATCH rows of TRAIN_SEQ tokens, as TRAIN_MICRO
+#: microbatches; TRAIN_STEPS steps, the first TRAIN_WARMUP untimed
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS, TRAIN_WARMUP = 2048, 8, 2, 30, 3
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=30)
+#: the loss of the last step must lie this far (nats) below the first's:
+#: the margin predicted in PERF.md before the first run on the card
+TRAIN_LOSS_DROP = 1.0
+#: the witnesses: each model's full width at WITNESS_TRAIN_LAYERS layers
+WITNESS_TRAIN_ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m")
+WITNESS_TRAIN_LAYERS = 2
+#: (a) card vs CPU, f32: loss and grad-norm, and the relative L2 of each
+#: leaf's update where AdamW's update is well conditioned: sqrt(v^) >= 10
+#: eps, or v^ = 0 (no gradient). Below, the gradient is nearly cancelled and
+#: mostly rounding, and m^ / (sqrt(v^) + eps) turns an f32 difference in it
+#: into up to 2 lr of update, between any two summation orders.
+DEVICE_STEP_TOL, DEVICE_UPDATE_TOL = 1e-4, 1e-3
+#: (b) microbatches 2 vs 1 in bf16: the reference's own limits
+#: (tests/test_units.py: loss 2e-2 relative, params 2e-2 absolute)
+ACCUM_LOSS_TOL, ACCUM_PARAM_TOL = 2e-2, 2e-2
+#: (c) remat on vs off, f32: loss and each leaf's gradient (relative L2)
+REMAT_TOL = 1e-6
+#: rows x tokens of the witnesses' batches: (a), (b) and (d); (c) at
+#: REMAT_SEQ tokens, where the activations remat frees show in the peak
+WITNESS_B, WITNESS_SEQ, REMAT_SEQ = 2, 128, 2048
+
+
+def _tree_to(tree, device):
+    """A params dict or an ``OptState`` with every tensor on ``device``."""
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [t.to(device) for t in tree_leaves(tree)])
+
+
+def train_flops(cfg, tokens: int) -> float:
+    """Model FLOPs of one train step: (6 x the matmul params, lm_head
+    included + 12 x layers x seq x d_model, causal attention) x tokens."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    per_layer = (d * cfg.num_heads * hd * 2 + d * cfg.num_kv_heads * hd * 2
+                 + 3 * d * cfg.d_ff)
+    matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
+    return (6 * matmul + 12 * cfg.num_layers * TRAIN_SEQ * d) * tokens
+
+
+def train_batches():
+    """Phase 5's packed batches as numpy arrays, and the seconds they took:
+    the data pipeline is a Python loop per token."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.data_pipeline import DataConfig, packed_batches
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    data = list(packed_batches(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+                               TRAIN_STEPS + 1))
+    return data, time.perf_counter() - t0
+
+
+def train_path(fp_ops, pa_ops, train_data) -> dict:
+    """Phase 5, full width and depth: TRAIN_STEPS AdamW steps of tinyllama-1.1b
+    (bf16 params, f32 moments, remat on) through ``make_train_step`` with
+    TRAIN_MICRO microbatches, on ``packed_batches`` made before the first
+    step. Gates: every loss and grad-norm finite, the last loss at least
+    TRAIN_LOSS_DROP below the first, every param leaf changed, neither
+    kernel launched (training attends with the plain versions: the
+    reference trains on XLA attention, with no backward kernel). Prints
+    the loss every 5 steps, the median host wall per step after
+    TRAIN_WARMUP steps, tokens/s, model FLOPs/s against the data sheet's
+    bf16 peak, the peak memory, then one more step under torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.engine.kv_cache import to_device
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_paths
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    data, seconds = train_data
+    print(f"train: {len(data)} packed batches of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, made "
+          f"on the host in {seconds:.1f} s by a worker process (before any step)")
+    batches = [{k: to_device(v, DEVICE) for k, v in b.items()} for b in data]
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, tokens)
+    print(f"train {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}; {n_params / 1e9:.4f} B params, remat {model.remat}, "
+          f"seeded in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"as {TRAIN_MICRO} microbatches; AdamWConfig({TRAIN_OPT}); model FLOPs per step "
+          f"(6 x matmul params + 12 x L x S x d) x tokens = {flops:.4e}")
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO)
+    state = init_opt_state(params)
+    p = params
+    losses, gnorms, walls = [], [], []
+    reset_launches(fp_ops, pa_ops)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        (p, state, m), wall = timed_call(lambda: step(p, state, batches[i]))
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = read_launches(fp_ops, pa_ops)
+    losses = torch.stack(losses).tolist()
+    gnorms = torch.stack(gnorms).tolist()
+    for i in range(0, TRAIN_STEPS, 5):
+        print(f"  step {i:3d}  loss {losses[i]:.4f}  gnorm {gnorms[i]:.3f}  "
+              f"host wall {walls[i]:.1f} ms")
+    print(f"  step {TRAIN_STEPS - 1:3d}  loss {losses[-1]:.4f}  gnorm {gnorms[-1]:.3f}")
+    timed = sorted(walls[TRAIN_WARMUP:])
+    median = timed[len(timed) // 2] if len(timed) % 2 else \
+        (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    tok_s = tokens / (median / 1e3)
+    mfu = flops / (median / 1e3) / PEAK_BF16_FLOPS
+    print(f"train step: median host wall {median:.2f} ms over steps {TRAIN_WARMUP}.."
+          f"{TRAIN_STEPS - 1} (min {timed[0]:.2f}, max {timed[-1]:.2f}); {tok_s:.1f} tokens/s; "
+          f"model FLOPs/s {flops / (median / 1e3) / 1e12:.2f} T = {100 * mfu:.2f}% of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; torch.cuda.max_memory_allocated "
+          f"{peak:.3f} GB (remat on); kernel launches {launches}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train: a loss or grad-norm is not finite: {losses} {gnorms}")
+    check(losses[-1] < losses[0] - TRAIN_LOSS_DROP,
+          f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f}, not {TRAIN_LOSS_DROP} lower")
+    unchanged = ["/".join(path) for (path, a), b in zip(tree_paths(params), _leaves(p))
+                 if torch.equal(a, b)]
+    check(not unchanged, f"train: param leaves unchanged after {TRAIN_STEPS} steps: {unchanged}")
+    check(launches["flash_prefill"] == 0 and launches["paged_attention"] == 0,
+          f"train: a kernel launched on the training path: {launches}")
+    del params
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (p, state, m), wall = timed_call(lambda: step(p, state, batches[TRAIN_STEPS]))
+    busy = report_profile(f"train step {TRAIN_STEPS} (profiled), {cfg.name} full width, "
+                          f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches",
+                          prof, median, 1)
+    print(f"  device busy {busy:.2f} ms of the profiled step's own host wall {wall:.2f} ms: "
+          f"idle {100 * (1 - busy / wall):.2f}%")
+    ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.self_device_time_total > 0),
+                 key=lambda kv: -kv[1])
+    print("  device time by operator: " + "; ".join(f"{k} {ms:.1f} ms" for k, ms in ops[:10]))
+    del p, state, m, step, model, batches, prof
+    torch.cuda.empty_cache()
+    return {"losses": losses, "median_ms": median, "tokens_per_s": tok_s, "mfu": mfu,
+            "flops": flops, "peak_gb": peak, "busy_ms": busy, "profiled_wall_ms": wall,
+            "idle": 1 - busy / wall}
+
+
+def _rel(a, b) -> float:
+    """Relative L2 distance of a from b, in f64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
+
+
+def train_witness(name) -> dict:
+    """Phase 5's witnesses at ``name``'s full width and WITNESS_TRAIN_LAYERS
+    layers (for granite-moe: the MoE dispatch and its aux loss under
+    autograd), seeded random weights, TF32 off:
+    (a) f32 train steps on the card against the same steps on the CPU: the
+        first from fresh moments (loss and grad-norm), the second from the
+        CPU's state after the first (loss, grad-norm and each leaf's update
+        where it is well conditioned);
+    (b) microbatches 2 against 1 in bf16 on the card;
+    (c) remat on against off in f32 on the card, at REMAT_SEQ tokens: loss
+        and gradients, and the peak memory of each;
+    (d) a checkpoint after 2 bf16 steps, saved and restored: every tensor
+        bit-equal, the step restored."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import checkpoint
+    from repro_torch.training.data_pipeline import DataConfig, packed_batches
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state, tree_leaves,
+                                                tree_paths, tree_unflatten)
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config(name), num_layers=WITNESS_TRAIN_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+
+    def data(B, S, n, seed):
+        return [{k: torch.from_numpy(v) for k, v in b.items()} for b in packed_batches(
+            DataConfig(cfg.vocab_size, S, B, seed=seed), n)]
+
+    def on(batch, device):
+        return {k: v.to(device) for k, v in batch.items()}
+
+    # (a) the card against the CPU, f32
+    model = build_model(cfg32)
+    cpu_p = model.init(torch.Generator("cpu").manual_seed(1))
+    b1, b2 = data(WITNESS_B, WITNESS_SEQ, 2, seed=1)
+    step = make_train_step(model, opt)
+    t0 = time.perf_counter()
+    cpu_p1, cpu_s1, cpu_m1 = step(cpu_p, init_opt_state(cpu_p), b1)
+    cpu_p2, _, cpu_m2 = step(cpu_p1, cpu_s1, b2)
+    t_cpu = (time.perf_counter() - t0) / 2
+    dev_p = _tree_to(cpu_p, DEVICE)
+    _, _, dev_m1 = step(dev_p, init_opt_state(dev_p), on(b1, DEVICE))
+    dev_p2, dev_s2, dev_m2 = step(_tree_to(cpu_p1, DEVICE), _tree_to(cpu_s1, DEVICE),
+                                  on(b2, DEVICE))
+    rel = {k: max(abs(dev[k].item() / cpu[k].item() - 1) for dev, cpu in
+                  ((dev_m1, cpu_m1), (dev_m2, cpu_m2))) for k in ("loss", "grad_norm")}
+    upd, ill = {}, 0
+    for (path, old), new_c, new_d, nu in zip(tree_paths(cpu_p1), tree_leaves(cpu_p2),
+                                             tree_leaves(dev_p2), tree_leaves(dev_s2.nu)):
+        nu = nu.cpu()
+        ok = ((nu / (1 - opt.b2 ** 2)).sqrt() >= 10 * opt.eps) | (nu == 0)
+        ill += int((~ok).sum())
+        upd["/".join(path)] = _rel((new_d.cpu() - old)[ok], (new_c - old)[ok])
+    worst = max(upd, key=upd.get)
+    print(f"train witness {name} (a) f32 step, card vs CPU (CPU {t_cpu:.1f} s a step): loss "
+          f"{cpu_m1['loss'].item():.6f} / {cpu_m2['loss'].item():.6f}, largest relative "
+          f"differences loss {rel['loss']:.2e}, grad-norm {rel['grad_norm']:.2e} (tol "
+          f"{DEVICE_STEP_TOL}); update relative L2 at most {upd[worst]:.2e} ({worst}; tol "
+          f"{DEVICE_UPDATE_TOL}; {ill} of {sum(t.numel() for t in tree_leaves(cpu_p))} "
+          f"elements ill-conditioned, left out)")
+    check(max(rel.values()) <= DEVICE_STEP_TOL, f"{name} (a): loss/grad-norm {rel}")
+    check(upd[worst] <= DEVICE_UPDATE_TOL, f"{name} (a): update of {worst} {upd[worst]}")
+    out["device_vs_cpu"] = {"loss_grad_norm": max(rel.values()), "update": upd[worst]}
+    del cpu_p, cpu_p1, cpu_p2, cpu_s1, dev_p, dev_p2, dev_s2
+
+    # (c) remat on against off, f32, on the card
+    params = model.init(torch.Generator(DEVICE).manual_seed(2))
+    (rb,) = data(1, REMAT_SEQ, 1, seed=2)
+    rb = on(rb, DEVICE)
+    res = {}
+    for remat in (True, False):
+        m = build_model(cfg32, remat=remat)
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = m.loss(tree_unflatten(params, leaves), rb)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        res[remat] = (loss.detach(), grads, (torch.cuda.max_memory_allocated() - base) / 1e9)
+        del leaves, loss, grads
+    gerr = max(_rel(a, b) for a, b in zip(res[True][1], res[False][1]))
+    lerr = abs(res[True][0].item() / res[False][0].item() - 1)
+    print(f"train witness {name} (c) remat on vs off, f32, 1 x {REMAT_SEQ}: loss relative "
+          f"difference {lerr:.2e}, gradients relative L2 at most {gerr:.2e} (tol {REMAT_TOL}); "
+          f"peak memory above the weights: remat on {res[True][2]:.3f} GB, off "
+          f"{res[False][2]:.3f} GB")
+    check(lerr <= REMAT_TOL and gerr <= REMAT_TOL, f"{name} (c): remat changes the result")
+    out["remat"] = {"err": max(lerr, gerr), "peak_on_gb": res[True][2],
+                    "peak_off_gb": res[False][2]}
+    del params, res, model
+
+    # (b) microbatches 2 against 1, bf16, on the card
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(3))
+    (ab,) = data(2 * WITNESS_B, WITNESS_SEQ, 1, seed=3)
+    ab = on(ab, DEVICE)
+    res = [make_train_step(model, opt, microbatches=n)(params, init_opt_state(params), ab)
+           for n in (1, 2)]
+    lerr = abs(res[1][2]["loss"].item() / res[0][2]["loss"].item() - 1)
+    perr = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(_leaves(res[0][0]), _leaves(res[1][0])))
+    print(f"train witness {name} (b) microbatches 2 vs 1, bf16: loss relative difference "
+          f"{lerr:.2e} (tol {ACCUM_LOSS_TOL}), params max abs difference {perr:.2e} (tol "
+          f"{ACCUM_PARAM_TOL})")
+    check(lerr <= ACCUM_LOSS_TOL and perr <= ACCUM_PARAM_TOL, f"{name} (b): accumulation")
+    out["accumulation"] = {"loss": lerr, "params": perr}
+    del res
+
+    # (d) a checkpoint after 2 steps, bf16
+    step = make_train_step(model, opt)
+    state = init_opt_state(params)
+    for b in data(WITNESS_B, WITNESS_SEQ, 2, seed=4):
+        params, state, _ = step(params, state, on(b, DEVICE))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ck.npz")
+        t0 = time.perf_counter()
+        checkpoint.save(path, params, state, step=2)
+        size = Path(path).stat().st_size / 1e9
+        rp, rs, rstep = checkpoint.restore(path, params, state)
+        t_ck = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for a, b in zip(tree_leaves(params) + tree_leaves(state),
+                               tree_leaves(rp) + tree_leaves(rs)))
+    print(f"train witness {name} (d) checkpoint after 2 steps: {size:.3f} GB saved and "
+          f"restored in {t_ck:.1f} s; every tensor bit-equal: {same}; step {rstep}, "
+          f"state step {rs.step.item()}")
+    check(same and rstep == 2 and rs.step.item() == 2, f"{name} (d): checkpoint round trip")
+    out["checkpoint_gb"] = size
+    del params, state, rp, rs, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
+    import concurrent.futures
+    import multiprocessing
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # phase 5's batches, made by one worker process while phases 1-4 run
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run(pool.submit(train_batches))
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def run(train_data) -> int:
+    import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_prefill import ops as fp_ops, ref as fp_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
@@ -1865,6 +2190,22 @@ def main() -> int:
               f"picks excused; witness {w['kernel']:.3e} / {w['plain']:.3e} = "
               f"{w['ratio']:.3f} (limit {WITNESS_RATIO_TOL}); planted faults "
               + ", ".join(f"{f} {r:.3f}" for f, r in w["faults"].items()))
+    # phase 5: training (phase 4's models are freed)
+    print(f"after phase 4: torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    t0 = time.perf_counter()
+    train = train_path(fp_ops, pa_ops, train_data.result())
+    witnesses = {name: train_witness(name) for name in WITNESS_TRAIN_ARCHS}
+    print("train summary " + json.dumps({
+        "arch": TRAIN_ARCH, "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+        "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+        "losses": train["losses"],
+        "median_step_ms": train["median_ms"], "tokens_per_s": train["tokens_per_s"],
+        "model_flops_per_step": train["flops"], "mfu_bf16": train["mfu"],
+        "peak_gb_remat_on": train["peak_gb"], "profiled_step_busy_ms": train["busy_ms"],
+        "profiled_step_wall_ms": train["profiled_wall_ms"],
+        "profiled_step_idle_share": train["idle"], "witnesses": witnesses,
+        "phase_s": time.perf_counter() - t0}))
     # launches by path: phase 1 (co-located) and phase 2 (default
     # configuration); flash launches split into whole prompts and chunks
     whole_n = {"colocated": colocated["flash_prefill_whole_prompt"],

@@ -51,7 +51,7 @@ from repro_torch.kernels import require_device, resolve_backend
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.models import attention, layers
-from repro_torch.models.transformer import (Transformer, _norm, _tree_index, block_prefill,
+from repro_torch.models.transformer import (Transformer, _norm, _tree_unbind, block_prefill,
                                             block_tail)
 
 class EngineCrashedError(RuntimeError):
@@ -243,8 +243,7 @@ class ServingEngine:
             self._layer_params_cached = src._layer_params_cached
         else:
             # per-layer params sliced once (views, no copies)
-            self._layer_params_cached = [
-                _tree_index(params["layers"], i) for i in range(cfg.num_layers)]
+            self._layer_params_cached = _tree_unbind(params["layers"])
         self._sample_step = 0
         self.alive = True
 

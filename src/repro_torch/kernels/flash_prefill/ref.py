@@ -35,7 +35,6 @@ def flash_prefill_ref(q, k, v, *, kv_len: int, q_offset: int = 0,
         lens = torch.as_tensor(kv_lens, device=dev)
         mask = mask & (k_pos[None] < lens[:, None, None])
     s = torch.where(mask[:, None, None], s, -1e30)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
     return o.reshape(B, Hq, Sq, hd).to(q.dtype)

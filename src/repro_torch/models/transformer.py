@@ -30,6 +30,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import BACKENDS, require_device
 from repro_torch.models import attention, layers, moe as moe_lib
@@ -53,11 +54,16 @@ def _norm(cfg: ModelConfig, p, x):
     return layers.rmsnorm(p, x, cfg.norm_eps)
 
 
-def _tree_index(tree, i: int):
-    """Entry ``i`` of a params dict whose leaves are stacked on axis 0."""
+def _tree_unbind(tree) -> list:
+    """The entries of a params dict whose leaves are stacked on axis 0, as a
+    list of dicts of views, each leaf unbound once. Under autograd the
+    backward of one ``unbind`` stacks the entries' grads once; indexing each
+    entry apart would add a stack-sized zero tensor per entry."""
     if isinstance(tree, dict):
-        return {k: _tree_index(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: _tree_unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
@@ -132,10 +138,13 @@ class Transformer:
     runs its plain version on a CPU tensor; ``"ref"`` asks for the plain
     version on any device by name. ``cache_dtype`` (e.g.
     ``"float8_e4m3fn"``) stores the decode cache in another dtype; attention
-    reads it in f32."""
+    reads it in f32. ``remat`` (the reference's default, on): under autograd
+    each scan body's activations are recomputed in the backward instead of
+    kept; without autograd it changes nothing."""
 
     def __init__(self, cfg: ModelConfig, *, backend: str = "auto", moe_groups: int = 16,
-                 long_context: bool = False, cache_dtype: str | None = None):
+                 long_context: bool = False, remat: bool = True,
+                 cache_dtype: str | None = None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         if cfg.local_global and cfg.num_layers % 2:
@@ -144,6 +153,7 @@ class Transformer:
         self.backend = "ref" if backend == "ref" else "cuda"
         self.moe_groups = moe_groups
         self.long_context = long_context
+        self.remat = remat
         self.cache_dtype = getattr(torch, cache_dtype) if cache_dtype else cfg.torch_dtype
 
     # --- parameters -------------------------------------------------------
@@ -184,39 +194,52 @@ class Transformer:
     def _cache_sizes(self, seq_len: int) -> list[int]:
         return [min(w, seq_len) if w else seq_len for w in self._windows()]
 
-    def _layers(self, params):
-        """(layer params, window class, index within the class) of every
-        layer, in order: gemma2's stack (L/2, 2) alternates local, global."""
-        lp = params["layers"]
+    def _bodies(self, params):
+        """The reference's scan over the layer stack, unrolled: per scan
+        body, a list of (layer params, window class). A body is one layer,
+        or one gemma2 local/global pair (its stack is (L/2, 2))."""
+        stack = _tree_unbind(params["layers"])
         if not self.cfg.local_global:
-            for i in range(self.cfg.num_layers):
-                yield _tree_index(lp, i), 0, i
-            return
-        for i in range(self.cfg.num_layers // 2):
-            pair = _tree_index(lp, i)
-            for c in (0, 1):
-                yield _tree_index(pair, c), c, i
+            return [[(lp, 0)] for lp in stack]
+        return [list(zip(_tree_unbind(pair), (0, 1))) for pair in stack]
 
     # --- forward over the full sequence ------------------------------------
     def _forward(self, params, x, positions, kv_lens, cache_len: int, backend: str):
         """Runs all layers; returns (hidden, caches, routings): per window
         class the stacked decode caches (k, v) of shape (layers of the class,
-        B, C, Hkv, hd) when ``cache_len`` > 0, and each MoE layer's routing."""
+        B, C, Hkv, hd) when ``cache_len`` > 0, and each MoE layer's routing.
+        With ``remat`` under autograd each scan body is checkpointed; it
+        returns its routings, since whatever it did besides would run again
+        in the recompute."""
         windows = self._windows()
         sizes = self._cache_sizes(cache_len) if cache_len else [0] * len(windows)
-        kvs = [[] for _ in windows]
-        routings = []
-        for lp, c, _ in self._layers(params):
-            x, (k, v), routing = block_prefill(
-                lp, x, positions, self.cfg, window=windows[c], kv_lens=kv_lens,
-                backend=backend, moe_groups=self.moe_groups)
-            if sizes[c]:
-                kvs[c].append(attention.write_prefill_cache(k, v, sizes[c],
-                                                            dtype=self.cache_dtype))
-            if routing is not None:
+
+        def body(group, x):
+            kvs, routings = [], []
+            for lp, c in group:
+                x, kv, routing = block_prefill(
+                    lp, x, positions, self.cfg, window=windows[c], kv_lens=kv_lens,
+                    backend=backend, moe_groups=self.moe_groups)
+                kvs.append(kv)
                 routings.append(routing)
+            return x, kvs, routings
+
+        remat = self.remat and torch.is_grad_enabled()
+        caches = [[] for _ in windows]
+        routings = []
+        for group in self._bodies(params):
+            if remat:
+                x, kvs, rs = torch.utils.checkpoint.checkpoint(body, group, x,
+                                                               use_reentrant=False)
+            else:
+                x, kvs, rs = body(group, x)
+            for (_, c), (k, v) in zip(group, kvs):
+                if sizes[c]:
+                    caches[c].append(attention.write_prefill_cache(k, v, sizes[c],
+                                                                   dtype=self.cache_dtype))
+            routings += [r for r in rs if r is not None]
         caches = [(torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
-                  for kv in kvs] if cache_len else None
+                  for kv in caches] if cache_len else None
         return x, caches, routings
 
     def _inputs(self, params, batch):
@@ -275,9 +298,10 @@ class Transformer:
         positions = cache["pos"]
         lengths = positions + 1
         x = self._embed(params, tokens[:, None])
-        for lp, c, i in self._layers(params):
-            x = block_decode(lp, x, positions, self.cfg, cache[f"k{c}"][i],
-                             cache[f"v{c}"][i], lengths, moe_groups=self.moe_groups)
+        for i, group in enumerate(self._bodies(params)):
+            for lp, c in group:
+                x = block_decode(lp, x, positions, self.cfg, cache[f"k{c}"][i],
+                                 cache[f"v{c}"][i], lengths, moe_groups=self.moe_groups)
         logits = self._logits(params, x[:, 0])
         return logits, {**cache, "pos": positions + 1}
 
