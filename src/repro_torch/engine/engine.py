@@ -210,10 +210,10 @@ class ServingEngine:
                  prefix_cache: bool = False, device="cuda",
                  kernels_from: "ServingEngine | None" = None):
         cfg = model.cfg
-        if cfg.local_global or cfg.sliding_window:
-            raise ValueError("engine supports full-attention archs (cluster-"
-                             "scale behaviour of windowed/SSM families is "
-                             "exercised via the simulator)")
+        if cfg.local_global or cfg.sliding_window or not isinstance(model, Transformer):
+            raise ValueError("engine supports full-attention Transformer archs "
+                             "(cluster-scale behaviour of windowed/SSM/hybrid/audio "
+                             "families is exercised via the simulator)")
         self.device = require_device(device)
         self.model = model
         self.cfg = cfg

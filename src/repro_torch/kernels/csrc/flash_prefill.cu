@@ -3,15 +3,24 @@
 // registers.
 //
 // Replaces: src/repro/kernels/flash_prefill/kernel.py, flash_prefill_pallas
-// (kernel body _kernel). Causal GQA attention, optionally sliding-window, of
-// Sq queries at absolute positions q_offset.. over the first kv_lens[b] keys,
-// with an optional tanh logit softcap. Key tiles above the causal diagonal or
-// left of the window are skipped.
+// (kernel body _kernel). GQA attention of Sq queries at absolute positions
+// q_offset.. over the first kv_lens[b] of Skv keys, causal (optionally
+// sliding-window) or not (an encoder's self-attention, or cross attention
+// with Sq != Skv), with an optional tanh logit softcap. Key tiles above the
+// causal diagonal, left of the window or past kv_lens[b] are skipped; the
+// tile that crosses kv_lens[b] (or ends past Skv, where TMA reads zeros) is
+// masked.
 //
-// Head dims 64, 96, 128 and 256, each an instantiation of its own. Tiles are
-// cut into column panels of one swizzle span: 64 columns (128-byte rows,
-// 128-byte swizzle) where hd is a multiple of 64, else 32 columns (64-byte
-// rows, 64-byte swizzle), so hd 96 is three panels and is not padded.
+// Head dims 64, 96, 112, 128 and 256. Tiles are cut into column panels of one
+// swizzle span: 64 columns (128-byte rows, 128-byte swizzle) where hd is a
+// multiple of 64, else 32 columns (64-byte rows, 64-byte swizzle), so hd 96
+// is three panels and is not padded. hd 112 (zamba2's shared attention) runs
+// the hd 128 tiles over the 112-wide tensors (the template's W): the tensor
+// maps span 112 columns, so TMA fills the second panel's last 16 columns of
+// Q, K and V with zeros (which add nothing to Q K^T and make O's last 16
+// columns 0), and the epilogue writes only the first 112. The reference pads
+// hd to 128 with zeros in the same way before its kernel; here nothing is
+// copied, and the card does 8/7 of the products.
 //
 // What bounds it on this card: at a prompt of 512 tokens (qwen2.5-7b widths,
 // Hq = 28, Hkv = 4, hd = 128) the bytes of q, K, V and the output (8.4 MB,
@@ -296,10 +305,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 // key 0 of the row and head. Each consumer sums column pairs over the keys,
 // four keys in flight. Out of line, so that this rare path costs the main
 // loop no registers.
-template <int HD>
+template <int W>
 __device__ __noinline__ void mean_v(float* mean, const __nv_bfloat16* vb, long long v_ss,
                                     int Skv, int tid) {
-  for (int c = 2 * tid; c < HD; c += 2 * kConsumers) {
+  for (int c = 2 * tid; c < W; c += 2 * kConsumers) {
     float x0[4] = {0.f, 0.f, 0.f, 0.f}, x1[4] = {0.f, 0.f, 0.f, 0.f};
     int key = 0;
     for (; key + 4 <= Skv; key += 4) {
@@ -326,8 +335,10 @@ __device__ __noinline__ void mean_v(float* mean, const __nv_bfloat16* vb, long l
 // group; blockIdx.z: batch row). Warps 0..3 are the consumer warpgroup, warp
 // 4 the producer. Rows of the block's Q tile are (position, packed head)
 // pairs: position-major (row = pos * GP + g) when the q map's S dim is outer
-// to its H dim, else head-major (row = g * qbox_s + pos).
-template <int HD>
+// to its H dim, else head-major (row = g * qbox_s + pos). HD is the width of
+// the tiles, W (<= HD) that of the tensors: columns W..HD-1 of the tiles are
+// TMA's zero fill.
+template <int HD, int W>
 __global__ void __launch_bounds__(160, HD > 128 ? 1 : 2) flash_prefill_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
@@ -336,6 +347,7 @@ __global__ void __launch_bounds__(160, HD > 128 ? 1 : 2) flash_prefill_kernel(
     int kv_box, int q_perm, int k_perm, int v_perm, long long o_sb, long long o_ss,
     long long o_sh, int q_offset, int causal, int window, float scale, float softcap) {
   using L = Smem<HD>;
+  static_assert(W % 8 == 0 && W <= HD && W > HD - L::kPW, "tensor width");
   constexpr int kPanels = L::kPanels;
   constexpr int NS = kBN / 2;  // score registers per thread
   extern __shared__ unsigned char smem_raw[];
@@ -546,7 +558,7 @@ __global__ void __launch_bounds__(160, HD > 128 ? 1 : 2) flash_prefill_kernel(
     __nv_bfloat16* op = out + b * o_sb + (long long)(p0 + prow[r]) * o_ss +
                         (long long)(gbase + hrow[r]) * o_sh + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < W / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(op + j * 8) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
@@ -555,14 +567,14 @@ __global__ void __launch_bounds__(160, HD > 128 ? 1 : 2) flash_prefill_kernel(
   const bool keyless = (live[0] && l[0] == 0.f) || (live[1] && l[1] == 0.f);
   if (consumers_any(keyless)) {
     float* mean = reinterpret_cast<float*>(smem + L::q);
-    mean_v<HD>(mean, v + b * v_sb + (long long)hk * v_sh, v_ss, Skv, threadIdx.x);
+    mean_v<W>(mean, v + b * v_sb + (long long)hk * v_sh, v_ss, Skv, threadIdx.x);
     asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (!live[r] || l[r] != 0.f) continue;
       __nv_bfloat16* op = out + b * o_sb + (long long)(p0 + prow[r]) * o_ss +
                           (long long)(gbase + hrow[r]) * o_sh + 2 * t4;
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < W / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(op + j * 8) =
             __floats2bfloat162_rn(mean[j * 8 + 2 * t4], mean[j * 8 + 2 * t4 + 1]);
     }
@@ -625,7 +637,7 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int H, int S, int B, lon
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int HD>
+template <int HD, int W>
 int launch(const void* q, const void* k, const void* v, void* out, const void* kv_lens, int B,
            int Sq, int Skv, int Hq, int Hkv, int GP, const long long* st, int q_offset,
            int causal, int window, float scale, float softcap, cudaStream_t s) {
@@ -633,7 +645,7 @@ int launch(const void* q, const void* k, const void* v, void* out, const void* k
   static bool attr_set = false;  // one opt-in per process for > 48 KB of shared memory
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::alloc);
+        flash_prefill_kernel<HD, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::alloc);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -643,12 +655,12 @@ int launch(const void* q, const void* k, const void* v, void* out, const void* k
   const int kv_box = Skv < kBN ? Skv : kBN;
   CUtensorMap qm, km, vm;
   int qp, kp, vp, err;
-  if ((err = make_map(&qm, q, HD, Hq, Sq, B, st[2], st[1], st[0], L::kPW, GP, qbox_s, &qp)) ||
-      (err = make_map(&km, k, HD, Hkv, Skv, B, st[5], st[4], st[3], L::kPW, 1, kv_box, &kp)) ||
-      (err = make_map(&vm, v, HD, Hkv, Skv, B, st[8], st[7], st[6], L::kPW, 1, kv_box, &vp)))
+  if ((err = make_map(&qm, q, W, Hq, Sq, B, st[2], st[1], st[0], L::kPW, GP, qbox_s, &qp)) ||
+      (err = make_map(&km, k, W, Hkv, Skv, B, st[5], st[4], st[3], L::kPW, 1, kv_box, &kp)) ||
+      (err = make_map(&vm, v, W, Hkv, Skv, B, st[8], st[7], st[6], L::kPW, 1, kv_box, &vp)))
     return err;
   const dim3 grid((Sq + npos - 1) / npos, Hkv * (G / GP), B);
-  flash_prefill_kernel<HD><<<grid, 160, L::alloc, s>>>(
+  flash_prefill_kernel<HD, W><<<grid, 160, L::alloc, s>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(v), st[6],
       st[7], st[8], static_cast<const int32_t*>(kv_lens), Sq,
       Skv, G, GP, npos, qbox_s, kv_box, qp, kp, vp, st[9], st[10], st[11], q_offset, causal,
@@ -656,15 +668,15 @@ int launch(const void* q, const void* k, const void* v, void* out, const void* k
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int W = HD>
 int launch_hd(const void* q, const void* k, const void* v, void* out, const void* kv_lens,
               int B, int Sq, int Skv, int Hq, int Hkv, const long long* st, int q_offset,
               int causal, int window, float scale, float softcap, cudaStream_t s) {
   const int G = Hq / Hkv;
   int GP = G < kMaxGP ? G : kMaxGP;  // the largest divisor of G up to kMaxGP
   while (G % GP) --GP;
-  return launch<HD>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, GP, st, q_offset, causal, window,
-                    scale, softcap, s);
+  return launch<HD, W>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, GP, st, q_offset, causal,
+                       window, scale, softcap, s);
 }
 
 }  // namespace
@@ -689,6 +701,9 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v, v
   if (hd == 96)
     return launch_hd<96>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
                          window, scale, softcap, s);
+  if (hd == 112)  // the hd 128 tiles over 112-wide tensors
+    return launch_hd<128, 112>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset,
+                               causal, window, scale, softcap, s);
   if (hd == 256)
     return launch_hd<256>(q, k, v, out, kv_lens, B, Sq, Skv, Hq, Hkv, strides, q_offset, causal,
                           window, scale, softcap, s);

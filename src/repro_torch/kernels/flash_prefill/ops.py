@@ -4,8 +4,9 @@ Model layout in and out: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd). On a CUDA
 tensor the wrapper launches the hand-written kernel
 (``csrc/flash_prefill.cu``), which reads the layout through TMA tensor maps
 built over the strides and takes ``q_offset`` and the per-row ``kv_lens`` at
-run time, so nothing is padded or transposed here (head_dim 96 included: the
-kernel has an instantiation for each of ``HEAD_DIMS``, and raises on any
+run time, so nothing is padded or transposed here (head_dims 96 and 112
+included: the kernel has an instantiation for each of ``HEAD_DIMS``, hd 112
+on the hd 128 tiles with TMA's zero fill past column 112, and raises on any
 other); on a CPU tensor it runs the plain version (``ref.py``). There is no
 fallback from one to the other.
 """
@@ -26,7 +27,7 @@ _ARGTYPES = [_P, _P, _P, _P, _P,                 # q, k, v, out, kv_lens
              ctypes.POINTER(ctypes.c_longlong),  # 12 strides
              _I, _I, _I,                         # q_offset, causal, window
              ctypes.c_float, ctypes.c_float, _P]  # scale, softcap, stream
-HEAD_DIMS = (64, 96, 128, 256)   # the kernel's instantiations
+HEAD_DIMS = (64, 96, 112, 128, 256)   # the kernel's instantiations
 
 
 def _kernel():

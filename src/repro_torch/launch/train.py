@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -22,6 +23,18 @@ from repro_torch.training import checkpoint
 from repro_torch.training.data_pipeline import DataConfig, packed_batches
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_loop import train
+
+
+def with_frames(batches, cfg, seed: int):
+    """An encoder-decoder's batches with seeded frame embeddings (B,
+    num_frontend_tokens, d_model) beside the tokens: the audio frontend is a
+    stub, and the token pipeline makes no frames (the reference's launcher
+    stops at the missing ``frontend_embeds`` for whisper)."""
+    rng = np.random.default_rng(seed)
+    for b in batches:
+        frames = rng.standard_normal((b["tokens"].shape[0], cfg.num_frontend_tokens,
+                                      cfg.d_model)).astype(np.float32)
+        yield {**b, "frontend_embeds": frames}
 
 
 def main(argv=None):
@@ -57,7 +70,10 @@ def main(argv=None):
     ckpt_fn = None
     if args.ckpt:
         ckpt_fn = lambda p, o, s: checkpoint.save(args.ckpt, p, o, s)
-    params, opt_state, hist = train(model, params, packed_batches(dc, args.steps),
+    batches = packed_batches(dc, args.steps)
+    if cfg.frontend == "audio":
+        batches = with_frames(batches, cfg, args.seed)
+    params, opt_state, hist = train(model, params, batches,
                                     opt, checkpoint_fn=ckpt_fn,
                                     checkpoint_every=max(args.steps // 2, 1))
     if args.ckpt:

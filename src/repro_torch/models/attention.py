@@ -41,18 +41,27 @@ def init_attn(gen, cfg: ModelConfig, stack: tuple = ()):
     return p
 
 
+def _project_q(p, x, cfg: ModelConfig, positions, rope: bool = True):
+    """x (B,S,d); positions (B,S). Returns q (B,S,Hq,hd)."""
+    B, S, _ = x.shape
+    q = layers.dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim_)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    if rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
 def _project_qkv(p, x, cfg: ModelConfig, positions, rope: bool = True):
     """x (B,S,d); positions (B,S). Returns q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    q = layers.dense(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    q = _project_q(p, x, cfg, positions, rope)
     k = layers.dense(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
     v = layers.dense(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
-        q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     if rope:
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -159,24 +168,36 @@ def _attend(q, k, v, cfg: ModelConfig, *, backend: str, causal: bool = True,
 
 
 def attn_prefill(p, x, positions, cfg: ModelConfig, *, window: int = 0,
-                 causal: bool = True, kv_lens=None, backend: str = "cuda"):
+                 causal: bool = True, kv_lens=None, backend: str = "cuda",
+                 cross_kv=None):
     """Returns (out (B,S,d), (k, v) post-rope for caching). ``backend`` is a
-    resolved engine backend (``repro_torch.kernels.resolve_backend``)."""
+    resolved engine backend (``repro_torch.kernels.resolve_backend``).
+    ``cross_kv`` (k, v) of shape (B, Skv, Hkv, hd): cross attention over
+    them instead of x's own K/V, never causal (an encoder-decoder's decoder
+    over the encoder's output; ``kv_lens`` then counts encoder positions).
+    Encoder-decoder models project with no rope."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions, rope=not cfg.is_encoder_decoder)
+    rope = not cfg.is_encoder_decoder
+    if cross_kv is None:
+        q, k, v = _project_qkv(p, x, cfg, positions, rope)
+    else:   # the reference projects x's K/V here too, and drops them
+        q, (k, v) = _project_q(p, x, cfg, positions, rope), cross_kv
+        causal = False
     n = fp_ops.flash_attention.launches
     out = _attend(q, k, v, cfg, backend=backend, causal=causal, window=window,
                   kv_lens=kv_lens)
     # the wrapper's own count, split off for whole prompts by (length,
-    # window, head_dim)
-    key = (S, window, q.shape[-1])
+    # window, head_dim, causal, key length)
+    key = (S, window, q.shape[-1], causal, k.shape[1])
     launched = attn_prefill.flash_launches
     launched[key] = launched.get(key, 0) + fp_ops.flash_attention.launches - n
     out = layers.dense(p["wo"], out.reshape(B, S, -1))
     return out, (k, v)
 
 
-#: flash kernel launches of whole prompts, by (length, window, head_dim)
+#: flash kernel launches of whole prompts, by (length, window, head_dim,
+#: causal, key length): a decoder's causal self-attention and its cross
+#: attention over the encoder at the same prompt length count apart
 attn_prefill.flash_launches = {}
 
 

@@ -50,6 +50,20 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return (x * (1.0 + p["scale"].float())).to(dt)
 
 
+def init_layernorm(d: int, dtype, device, stack: tuple = ()):
+    return {"scale": torch.ones((*stack, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*stack, d), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * p["scale"].float() + p["bias"].float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -75,6 +89,22 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(num_pos: int, d_model: int) -> np.ndarray:
+    """Whisper-style sinusoidal embeddings (num_pos, d_model), f32."""
+    log_timescale = np.log(10000.0) / (d_model // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(d_model // 2))
+    t = np.arange(num_pos)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def sinusoidal_positions_on(num_pos: int, d_model: int, dtype, device) -> torch.Tensor:
+    """``sinusoidal_positions`` in ``dtype`` on ``device``, uploaded once: an
+    upload per call would make every decode step wait for the copy."""
+    return torch.as_tensor(sinusoidal_positions(num_pos, d_model)).to(device=device,
+                                                                      dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,24 @@ NAIVE_TRAIN_MAX_SEQ = 8192
 
 def _norm_init(cfg: ModelConfig, d: int, device, stack: tuple = ()):
     if cfg.family == AUDIO:
-        raise NotImplementedError("layernorm models (whisper) are not ported "
-                                  "yet: ROADMAP queue 1, off the serving path")
+        return layers.init_layernorm(d, cfg.torch_dtype, device, stack)
     return layers.init_rmsnorm(d, cfg.torch_dtype, device, stack)
 
 
 def _norm(cfg: ModelConfig, p, x):
+    if cfg.family == AUDIO:
+        return layers.layernorm(p, x, cfg.norm_eps)
     return layers.rmsnorm(p, x, cfg.norm_eps)
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, checkpointed under autograd when ``remat`` (the
+    reference's ``jax.checkpoint`` around a scan body): its activations are
+    recomputed in the backward instead of kept. Without autograd it is a
+    plain call."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _tree_unbind(tree) -> list:

@@ -7,8 +7,9 @@ machine that has only PyTorch and a card:
 
 (``--noconftest`` skips tests/conftest.py, which imports JAX.) Without a
 card the ``cuda``-marked tests skip. Tolerance 2e-2, and 1e-2 + 2^-7 |ref|
-at head dims 96 and 256: both sides compute in f32 from the same bf16
-inputs, and the output's one bf16 rounding can land on either side.
+at head dims 96, 112 and 256 and on the non-causal shapes: both sides
+compute in f32 from the same bf16 inputs, and the output's one bf16
+rounding can land on either side.
 
 A softcap case scales q by CAP_Q_SCALE, so that its scores reach the cap
 (at N(0, 1) scores the cap changes them by 0.2%, and a kernel that skipped
@@ -29,10 +30,11 @@ CAP_Q_SCALE = 16.0
 
 
 def _assert_cap_visible(want, uncapped, atol, rtol):
-    """The softcap moves the plain output by at least 10 tolerances."""
+    """The softcap (or another fault planted in the plain version) moves the
+    plain output by at least 10 tolerances."""
     want = want.float()
     r = ((uncapped.float() - want).abs() / (atol + rtol * want.abs())).max().item()
-    assert r >= 10, f"the softcap moves the output by only {r:.2f} tolerances"
+    assert r >= 10, f"the fault moves the output by only {r:.2f} tolerances"
 
 
 def _paged_inputs(B, Hq, Hkv, hd, page, P, npages, trash_row, seed):
@@ -240,6 +242,49 @@ def test_cuda_flash_kernel_at_head_dims_96_and_256(heads, B, Sq, Skv, off, kv, w
         _assert_cap_visible(want, plain(0.0), 1e-2, 2.0 ** -7)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,B,Sq,Skv,off,kv,window,causal,q_scale", [
+    # zamba2-7b's shared attention (hd 112, on the kernel's hd 128 tiles):
+    # its two prompts of 2048 and 777 tokens, a sliding window (the
+    # long_context path), a chunk at q_offset > 0
+    ((32, 32, 112), 2, 2048, 2048, 0, [2048, 777], 0, True, 1.0),
+    ((32, 32, 112), 1, 1024, 1024, 0, [1024], 256, True, 1.0),
+    ((32, 32, 112), 1, 200, 600, 400, [600], 0, True, 1.0),
+    # whisper-tiny, not causal: the encoder over 1500 and 1123 frames, and
+    # cross attention from prompts of 64 and 40 tokens over them (Skv 1500 is
+    # no multiple of the key tile); q scaled so that each softmax picks few keys
+    ((6, 6, 64), 2, 1500, 1500, 0, [1500, 1123], 0, False, CAP_Q_SCALE),
+    ((6, 6, 64), 2, 64, 1500, 0, [1500, 1123], 0, False, CAP_Q_SCALE),
+    ((6, 6, 64), 2, 40, 1500, 0, [1500, 1123], 0, False, CAP_Q_SCALE),
+])
+def test_cuda_flash_kernel_at_hd_112_and_not_causal(heads, B, Sq, Skv, off, kv, window, causal,
+                                                     q_scale):
+    """The flash kernel at zamba2's hd 112 and at whisper's non-causal and
+    cross shapes against the plain version, within |err| <= 1e-2 + 2^-7
+    |ref|, one launch counted per call; where not causal, the plain version
+    with causal=True lies at least 10 tolerances away."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = "cuda"
+    Hq, Hkv, hd = heads
+    g = torch.Generator(dev).manual_seed(Sq + hd)
+    q = (torch.randn(B, Sq, Hq, hd, generator=g, device=dev) * q_scale).bfloat16()
+    k = torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).bfloat16()
+    lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    n = fp_ops.flash_attention.launches
+    got = fp_ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off, window=window,
+                                 causal=causal)
+    plain = lambda c: flash_prefill_ref(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len=Skv,
+        q_offset=off, kv_lens=lens, window=window, causal=c).transpose(1, 2)
+    want = plain(causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2.0 ** -7)
+    assert fp_ops.flash_attention.launches == n + 1
+    if not causal:
+        _assert_cap_visible(want, plain(True), 1e-2, 2.0 ** -7)
+
+
 def test_flash_wrapper_refuses_other_head_dims():
     """A head_dim the kernel was not built for raises before any launch (the
     check runs on the CPU too); a CPU tensor never reaches the kernel."""
@@ -247,4 +292,4 @@ def test_flash_wrapper_refuses_other_head_dims():
     lens = torch.tensor([8], dtype=torch.int32)
     with pytest.raises(ValueError, match="head_dim"):
         fp_ops._check(q, q, q, lens)
-    assert fp_ops.HEAD_DIMS == (64, 96, 128, 256)
+    assert fp_ops.HEAD_DIMS == (64, 96, 112, 128, 256)

@@ -7,8 +7,9 @@ Tolerances: ``lr_at`` 1e-6 relative; ``global_norm`` and one
 ``adamw_update`` in f32 1e-6, in bf16 within one bf16 ulp (the f32 update
 may round to the neighbouring bf16 value); one train step, for reduced
 tinyllama, qwen, gemma2 (local/global, softcaps), granite-moe (the aux
-loss) and phi-3-vision (image embeddings), at 1 and 2 microbatches with
-remat on and off: loss and grad-norm 1e-5 relative, and each leaf's update
+loss), phi-3-vision (image embeddings), rwkv6, zamba2 and whisper (frame
+embeddings), at 1 and 2 microbatches with remat on and off: loss and
+grad-norm 1e-5 relative, and each leaf's update
 (new - old) of a step from warm moments within 1e-4 of the reference's in
 relative L2 where the update is well conditioned (see the test); a 10-step loss
 curve 1e-4 at every step; the key-block attention's gradient against the
@@ -153,7 +154,7 @@ def test_global_norm_and_adamw_update_match_jax(dtype, moments):
 # ---------------------------------------------------------------------------
 
 ARCHS = ["tinyllama-1.1b", "qwen2.5-7b", "gemma2-2b", "granite-moe-3b-a800m",
-         "phi-3-vision-4.2b"]
+         "phi-3-vision-4.2b", "rwkv6-1.6b", "zamba2-7b", "whisper-tiny"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,11 +168,11 @@ def _models(arch):
 
 def _batch(cfg, rng, B=4, S=32):
     """tokens, next-token labels (the last one ignored), and a VLM's image
-    embeddings."""
+    embeddings or an encoder-decoder's frame embeddings."""
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     labels = np.concatenate([tokens[:, 1:], -np.ones((B, 1), np.int32)], axis=1)
     out = {"tokens": tokens, "labels": labels}
-    if cfg.frontend == "vision":
+    if cfg.frontend in ("vision", "audio"):
         out["frontend_embeds"] = rng.standard_normal(
             (B, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
     return out

@@ -31,7 +31,10 @@ from repro_torch.interop import params_from_jax
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 from repro_torch.models import attention
 from repro_torch.models.model import build_model
+from repro_torch.models.rwkv_model import RWKVModel
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.whisper import WhisperModel
+from repro_torch.models.zamba2 import Zamba2Model
 
 torch.set_num_threads(1)
 
@@ -321,20 +324,21 @@ def test_long_context_and_cache_dtype_match_jax():
 
 def test_build_model_routes_every_transformer_family():
     """Dense, MoE and VLM build a Transformer (gemma2's layer stack restacked
-    to (L/2, 2), as the reference's); SSM, hybrid and audio raise and name
-    their ROADMAP item."""
-    for arch in ("gemma2-2b", "phi-3-vision-4.2b", "qwen2.5-7b", "granite-moe-3b-a800m"):
+    to (L/2, 2), as the reference's); SSM, hybrid and audio build the port's
+    RWKVModel, Zamba2Model and WhisperModel. Each init tree equals the JAX
+    model's in shape."""
+    classes = {"rwkv6-1.6b": RWKVModel, "zamba2-7b": Zamba2Model,
+               "whisper-tiny": WhisperModel}
+    for arch in ("gemma2-2b", "phi-3-vision-4.2b", "qwen2.5-7b", "granite-moe-3b-a800m",
+                 *classes):
         cfg = get_config(arch).reduced()
         model = build_model(cfg)
-        assert isinstance(model, Transformer)
+        assert type(model) is classes.get(arch, Transformer)
         jp = jax_build_model(jax_get_config(arch).reduced(), remat=False).init(
             jax.random.PRNGKey(0))
         tp = model.init(torch.Generator().manual_seed(0))
         assert jax.tree.map(lambda a: tuple(a.shape), jp) == \
             jax.tree.map(lambda t: tuple(t.shape), tp)
-    for arch in ("rwkv6-1.6b", "zamba2-7b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            build_model(get_config(arch).reduced())
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2.5-7b"])
