@@ -110,7 +110,23 @@
    against the CPU, microbatches 2 against 1, remat on against off (with
    the peak memory of each) and a checkpoint round trip; then a ``train
    summary`` line.
-10. Prints the kernel table as one JSON line (flash prefill at S=512, at
+10. Phase 6 (multi_device): a one-rank NCCL process group over a file store
+   in the temp dir and a (1, 1) ("data", "model") mesh on the card. The
+   expert-parallel MoE (``models.moe_ep``) at granite-moe-3b-a800m's full
+   width, 40 experts padded to 48 (the production layout over a 16-wide
+   expert axis), 8 x 512 tokens: ``moe_mlp_ep`` at capacity factor 2.0
+   against ``moe_ep_ref`` and both against ``moe.moe_mlp`` on the unpadded
+   weights at a capacity that drops nothing (relative error on tokens whose
+   top-8 choices agree at most 2e-2; identical choices at least 0.99; no
+   choice on experts 40-47; 0 host syncs a call; collectives a call), and
+   the three timed beside the bound. Then ``param_specs`` over every
+   assigned arch's meta params at both production meshes and all weight
+   modes (every axis divides; no leaf over 64 MB replicated in fsdp_tp
+   but a vocabulary that does not divide; the largest share a device
+   holds), and full-width granite's weights placed over the mesh with
+   ``distribute_params`` (every local shard equal to its leaf); then a
+   ``multi_device summary`` line.
+11. Prints the kernel table as one JSON line (flash prefill at S=512, at
    S=2048 and on the chunk shape, the granite rows, gemma2's and
    phi-3-vision's prefill shapes, and zamba2's hd 112, whisper's encoder and
    cross shapes, each row with its ratio to the library call and its
@@ -2516,6 +2532,210 @@ def train_witness(name) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the multi-device layer (multi_device)
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "granite-moe-3b-a800m"
+EP_AXIS = 16             # the production expert axis: 40 experts padded to 48
+EP_BATCH, EP_SEQ = 8, 512
+EP_CF = 2.0              # at one rank C = T k cf >= T k: nothing drops
+EP_REL_TOL = 2e-2        # max |a - b| / max |b| over tokens whose choices agree
+EP_SAME_CHOICES = 0.99   # share of tokens with identical top-k choices
+BIG_LEAF_BYTES = 64e6    # no larger leaf stays replicated (the reference's rule)
+PRODUCTION_MESHES = {"16x16": {"data": 16, "model": 16},
+                     "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+
+def start_group():
+    """A one-rank process group over a file store in the temp dir: NCCL on
+    the card (gloo only where DEVICE is the CPU, for a rehearsal)."""
+    import tempfile
+    import torch.distributed as dist
+    store = Path(tempfile.mkdtemp()) / "store"
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0, world_size=1)
+    return dist.group.WORLD
+
+
+def _agree_err(a, b, same) -> float:
+    """max |a - b| / max |b| over the tokens (rows) in ``same``."""
+    a, b = a.float().reshape(-1, a.shape[-1])[same], b.float().reshape(-1, b.shape[-1])[same]
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def ep_moe(group, flush) -> dict:
+    """Expert-parallel MoE at granite's full width on one rank: 40 experts
+    padded to 48 (the production layout over a 16-wide expert axis), 4096
+    tokens, against the padded oracle and ``moe.moe_mlp`` on the unpadded
+    weights at a capacity that drops nothing."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib, moe_ep
+    cfg = get_config(EP_ARCH)
+    E, k, d, ff = cfg.num_experts, cfg.experts_per_token, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    p = moe_lib.init_moe(gen, cfg)
+    pp, E_pad = moe_ep.pad_experts(p, cfg, EP_AXIS)
+    x = torch.randn(EP_BATCH, EP_SEQ, d, generator=gen, device=DEVICE).to(cfg.torch_dtype)
+    T = EP_BATCH * EP_SEQ
+    nodrop = dataclasses.replace(cfg, moe_capacity_factor=E / k)   # C = Tg in every group
+
+    ep_fn = lambda: moe_ep.moe_mlp_ep(pp, x, cfg, group, capacity_factor=EP_CF)  # noqa: E731
+    ref_fn = lambda: moe_ep.moe_ep_ref(pp, x, cfg)                               # noqa: E731
+    mlp_fn = lambda: moe_lib.moe_mlp(p, x, nodrop)[0]                           # noqa: E731
+    ep_fn()                                  # the communicator starts on the first exchange
+    moe_ep.moe_mlp_ep.collectives = 0
+    ep = ep_fn()
+    collectives = moe_ep.moe_mlp_ep.collectives
+    syncs = count_syncs(ep_fn)
+    ref, mlp = ref_fn(), mlp_fn()
+    e_ep = moe_ep.route(pp["router"], x, cfg)[1].reshape(T, k)
+    e_mlp = moe_lib._route(p, x, k)[2].reshape(T, k)
+    same = (e_ep == e_mlp).all(-1)
+    dead = int((e_ep >= E).sum().item())
+    out = {"E": E, "E_pad": E_pad, "tokens": T, "capacity_factor": EP_CF,
+           "collectives_per_call": collectives, "host_syncs_per_call": len(syncs),
+           "dead_expert_choices": dead, "same_choices_share": same.float().mean().item(),
+           "max_abs_ref": ref.float().abs().max().item(),
+           "rel_err_ep_vs_ref": _agree_err(ep, ref, torch.ones_like(same)),
+           "rel_err_ep_vs_moe_mlp": _agree_err(ep, mlp, same),
+           "rel_err_ref_vs_moe_mlp": _agree_err(ref, mlp, same)}
+    print(f"multi_device ep: granite {E} experts padded to {E_pad}, {T} tokens, top-{k}, cf "
+          f"{EP_CF}; {collectives} collectives a call, host syncs {syncs}; dead-expert "
+          f"choices {dead} (limit 0); identical choices with moe_mlp "
+          f"{out['same_choices_share']:.4f} (limit {EP_SAME_CHOICES}); relative error "
+          f"ep vs ref {out['rel_err_ep_vs_ref']:.3e}, ep vs moe_mlp "
+          f"{out['rel_err_ep_vs_moe_mlp']:.3e}, ref vs moe_mlp "
+          f"{out['rel_err_ref_vs_moe_mlp']:.3e} (limit {EP_REL_TOL}); max |ref| "
+          f"{out['max_abs_ref']:.3e}")
+    check(dead == 0, f"moe_mlp_ep: {dead} choices on dead experts")
+    check(not syncs, f"moe_mlp_ep synchronizes the host: {syncs}")
+    check(collectives > 0, "moe_mlp_ep made no collective")
+    check(out["max_abs_ref"] > 0, "moe_ep_ref's output is all zero")
+    check(out["same_choices_share"] >= EP_SAME_CHOICES, "moe_mlp_ep: routing choices differ")
+    for key in ("rel_err_ep_vs_ref", "rel_err_ep_vs_moe_mlp", "rel_err_ref_vs_moe_mlp"):
+        check(out[key] <= EP_REL_TOL, f"moe_mlp_ep: {key} {out[key]:.3e} over {EP_REL_TOL}")
+
+    flops = 6 * T * k * d * ff
+    nbytes = sum(t.numel() * t.element_size() for t in pp.values()) + 2 * x.numel() * x.element_size()
+    b_ms, b_by = bound(nbytes, flops)
+    times = {name: time_ms(fn, 10, flush) for name, fn in
+             (("moe_mlp_ep", ep_fn), ("moe_ep_ref", ref_fn), ("moe_mlp", mlp_fn))}
+    _, wall = timed_call(ep_fn)
+    busy = device_busy(f"multi_device moe_mlp_ep, {T} tokens", ep_fn, wall)
+    out.update({f"{name}_ms": t for name, t in times.items()},
+               routed_gflop=flops / 1e9, moved_mb=nbytes / 1e6, bound_ms=b_ms, bound_by=b_by,
+               ep_host_wall_ms=wall, ep_device_busy_ms=busy)
+    print(f"multi_device ep times (ms): moe_mlp_ep {times['moe_mlp_ep']:.4f}, moe_ep_ref "
+          f"{times['moe_ep_ref']:.4f}, moe.moe_mlp (cf {E / k}) {times['moe_mlp']:.4f}; bound "
+          f"{b_ms:.4f} by {b_by} ({flops / 1e9:.1f} GFLOP routed, {nbytes / 1e6:.1f} MB moved)")
+    return out
+
+
+def rules_at_full_width() -> dict:
+    """``param_specs`` over every assigned arch's meta params, on both
+    production meshes and in every weight mode: the largest weight bytes one
+    device holds; every named axis divides its dim; in ``fsdp_tp`` no leaf
+    over 64 MB stays replicated but an embedding whose vocab does not
+    divide."""
+    import math
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.launch import specs
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import rules
+    out = {}
+    for arch in ASSIGNED:
+        params = specs.abstract_params(build_model(get_config(arch)))
+        leaves = dict(_leaves_with_path(params))
+        for mesh_name, mesh in PRODUCTION_MESHES.items():
+            for mode in ("fsdp_tp", "tp_only", "replicated"):
+                sp = dict(_leaves_with_path(rules.param_specs(params, mesh, mode)))
+                per_dev = 0
+                for path, leaf in leaves.items():
+                    spec, parts = sp[path], 1
+                    for dim, ax in zip(leaf.shape, spec):
+                        if ax is None:
+                            continue
+                        size = math.prod(mesh[a] for a in (ax if isinstance(ax, tuple) else (ax,)))
+                        check(dim % size == 0, f"{arch} {mode} {path}: {spec} over {leaf.shape}")
+                        parts *= size
+                    nbytes = leaf.numel() * leaf.element_size()
+                    per_dev += nbytes / parts
+                    if mode == "fsdp_tp" and nbytes > BIG_LEAF_BYTES and parts == 1:
+                        check(path.endswith("embed") and leaf.shape[0] % mesh["model"] != 0,
+                              f"{arch} {mesh_name}: {path} ({nbytes / 1e6:.0f} MB) replicated")
+                out[f"{arch} {mesh_name} {mode}"] = per_dev / 1e9
+    worst = {m: max((v, k.rsplit(" ", 1)[0]) for k, v in out.items() if k.endswith(m))
+             for m in ("fsdp_tp", "tp_only", "replicated")}
+    print(f"multi_device rules: {len(out)} cases; largest weight GB per device by mode: "
+          + "; ".join(f"{m} {v:.3f} ({k})" for m, (v, k) in worst.items()))
+    return {"cases": len(out), "max_gb_per_device": worst}
+
+
+def _leaves_with_path(tree, path=""):
+    """(the "/"-joined keys, leaf) of a nested dict, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_path(v, f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def place_granite(mesh) -> dict:
+    """Full-width granite's weights placed over the (1, 1) mesh by their
+    ``tp_only`` specs: every local shard equals its leaf."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_shape_dict
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import rules
+    cfg = get_config(EP_ARCH)
+    params = build_model(cfg).init(torch.Generator(DEVICE).manual_seed(0))
+    sp = rules.param_specs(params, mesh_shape_dict(mesh), "tp_only")
+    t0 = time.perf_counter()
+    placed = rules.distribute_params(params, mesh, sp)
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    flat_sp = dict(_leaves_with_path(sp))
+    pairs = list(zip(_leaves_with_path(params), _leaves_with_path(placed)))
+    bad = [p for (p, a), (_, b) in pairs if not torch.equal(b.to_local(), a)
+           or list(b.placements) != rules.placements(flat_sp[p], mesh)]
+    gb = sum(a.numel() * a.element_size() for _, a in _leaves_with_path(params)) / 1e9
+    print(f"multi_device place: granite {gb:.2f} GB in {len(pairs)} leaves over mesh "
+          f"{mesh_shape_dict(mesh)} (tp_only) in {t_place:.2f} s; local shards equal to "
+          f"their leaves: {len(pairs) - len(bad)}/{len(pairs)}")
+    check(not bad, f"distribute_params: leaves differ or misplaced: {bad[:5]}")
+    del placed, params
+    return {"placed_gb": gb, "leaves": len(pairs), "place_s": t_place}
+
+
+def multi_device_path() -> dict:
+    """Phase 6: a one-rank process group and a (1, 1) mesh on the card, the
+    expert-parallel MoE at granite's full width, the rules at every assigned
+    arch's full width, and granite's weights placed over the mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, mesh_shape_dict
+    t0 = time.perf_counter()
+    group = start_group()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), DEVICE)
+        print(f"multi_device: {dist.get_backend()} group of {dist.get_world_size()}, mesh "
+              f"{mesh_shape_dict(mesh)} on {DEVICE}")
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+        out = {"ep": ep_moe(group, flush)}
+        del flush
+        out["rules"] = rules_at_full_width()
+        out["place"] = place_granite(mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import concurrent.futures
     import multiprocessing
@@ -2635,6 +2855,8 @@ def run(train_data) -> int:
         "profiled_step_wall_ms": train["profiled_wall_ms"],
         "profiled_step_idle_share": train["idle"], "witnesses": witnesses,
         "phase_s": time.perf_counter() - t0}))
+    # phase 6: the multi-device layer
+    print("multi_device summary " + json.dumps(multi_device_path()))
     # launches by path: phase 1 (co-located) and phase 2 (default
     # configuration); flash launches split into whole prompts and chunks
     whole_n = {"colocated": colocated["flash_prefill_whole_prompt"],

@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.kernels import require_device
 from repro_torch.models.config import ModelConfig
 
 
@@ -310,7 +311,7 @@ class PagedKVCache:
     num_pages: int
     page_size: int = 16
     enable_prefix_cache: bool = False
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
     k_pool: torch.Tensor = field(init=False)
     v_pool: torch.Tensor = field(init=False)
     allocator: BlockAllocator = field(init=False)
@@ -320,7 +321,7 @@ class PagedKVCache:
 
     def __post_init__(self):
         cfg = self.cfg
-        self.device = torch.device(self.device)
+        self.device = require_device(self.device)
         shape = (cfg.num_layers, self.num_pages, self.page_size,
                  cfg.num_kv_heads, cfg.head_dim_)
         # Storage dtype: on a CUDA device the pools store cfg's dtype (bf16)

@@ -36,8 +36,8 @@ def init_attn(gen, cfg: ModelConfig, stack: tuple = ()):
                                 stack=stack),
     }
     if cfg.qk_norm:
-        p["q_norm"] = layers.init_rmsnorm(hd, dt, gen.device, stack)
-        p["k_norm"] = layers.init_rmsnorm(hd, dt, gen.device, stack)
+        p["q_norm"] = layers.init_rmsnorm(hd, dt, layers.param_device(gen), stack)
+        p["k_norm"] = layers.init_rmsnorm(hd, dt, layers.param_device(gen), stack)
     return p
 
 

@@ -2,19 +2,48 @@
 
 The parameter layout matches ``repro.models.layers``: ``dense`` weights are
 ``(d_in, d_out)`` and apply as ``x @ w``, so weights carry across unchanged.
-Initialisers draw from an explicit ``torch.Generator`` on its own device.
+Initialisers draw from an explicit ``torch.Generator`` on its own device,
+or make shapes only on the ``meta`` device inside ``on_meta()``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
+_init = threading.local()
+
+
+@contextlib.contextmanager
+def on_meta():
+    """Every ``init`` called inside puts its parameters on the ``meta``
+    device (shapes and dtypes, no storage) and draws nothing: no generator
+    lives on ``meta``, so the init path's device differs from its
+    generator's here."""
+    prev = getattr(_init, "meta", False)
+    _init.meta = True
+    try:
+        yield
+    finally:
+        _init.meta = prev
+
+
+def param_device(gen: torch.Generator) -> torch.device:
+    """Where ``init`` puts parameters: ``meta`` inside ``on_meta()``, else
+    the generator's device."""
+    return torch.device("meta") if getattr(_init, "meta", False) else gen.device
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    dev = param_device(gen)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
     return (w * scale).to(dtype)
 
 
@@ -23,7 +52,7 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
     """``stack`` prepends leading axes (the transformer stacks its layers)."""
     p = {"w": _normal(gen, (*stack, d_in, d_out), scale, dtype)}
     if bias:
-        p["b"] = torch.zeros((*stack, d_out), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((*stack, d_out), dtype=dtype, device=param_device(gen))
     return p
 
 

@@ -31,7 +31,7 @@ from repro_torch.models.config import ModelConfig
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
     """Parameters of one Mamba2 mixer, with ``stack`` leading axes."""
     d, di, ns, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads
-    dt_, dev = cfg.torch_dtype, gen.device
+    dt_, dev = cfg.torch_dtype, layers.param_device(gen)
     d_in_proj = 2 * di + 2 * ns + nh  # z, x, B, C, dt
     conv_dim = di + 2 * ns
     a_init = torch.linspace(1.0, 16.0, nh, device=dev).log()

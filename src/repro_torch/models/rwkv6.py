@@ -24,7 +24,7 @@ def init_rwkv(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
     """Parameters of one block's time mix and channel mix, with ``stack``
     leading axes."""
     d, H, hd, r = cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.rwkv_lora_dim
-    dt, dev = cfg.torch_dtype, gen.device
+    dt, dev = cfg.torch_dtype, layers.param_device(gen)
     out_scale = 0.02 / np.sqrt(2 * cfg.num_layers)
 
     def w(shape, scale=0.02):

@@ -80,7 +80,7 @@ def _tree_unbind(tree) -> list:
 def init_block(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
     """Transformer block parameters (attention + MLP/MoE + norms), with
     ``stack`` leading axes on every leaf."""
-    dev = gen.device
+    dev = layers.param_device(gen)
     p = {
         "ln1": _norm_init(cfg, cfg.d_model, dev, stack),
         "attn": attention.init_attn(gen, cfg, stack),
@@ -177,7 +177,7 @@ class Transformer:
         p = {
             "embed": layers._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt),
             "layers": init_block(gen, cfg, stack=stack),
-            "final_norm": _norm_init(cfg, cfg.d_model, gen.device),
+            "final_norm": _norm_init(cfg, cfg.d_model, layers.param_device(gen)),
         }
         if not cfg.tie_embeddings:
             p["lm_head"] = layers._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02, dt)

@@ -41,7 +41,7 @@ class WhisperModel:
         """Parameters on ``gen``'s device, at the JAX package's shapes and
         scales (its random bits differ: tests carry JAX weights across)."""
         cfg = self.cfg
-        d, dt, dev = cfg.d_model, cfg.torch_dtype, gen.device
+        d, dt, dev = cfg.d_model, cfg.torch_dtype, layers.param_device(gen)
 
         def ln(stack=()):
             return layers.init_layernorm(d, dt, dev, stack)

@@ -60,7 +60,7 @@ class Zamba2Model:
         """Parameters on ``gen``'s device, at the JAX package's shapes and
         scales (its random bits differ: tests carry JAX weights across)."""
         cfg = self.cfg
-        dt, dev, L = cfg.torch_dtype, gen.device, (cfg.num_layers,)
+        dt, dev, L = cfg.torch_dtype, layers.param_device(gen), (cfg.num_layers,)
         return {
             "embed": layers._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt),
             "mamba_layers": {"ln": layers.init_rmsnorm(cfg.d_model, dt, dev, L),

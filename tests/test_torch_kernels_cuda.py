@@ -293,3 +293,39 @@ def test_flash_wrapper_refuses_other_head_dims():
     with pytest.raises(ValueError, match="head_dim"):
         fp_ops._check(q, q, q, lens)
     assert fp_ops.HEAD_DIMS == (64, 96, 112, 128, 256)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ep_on_one_nccl_rank(tmp_path):
+    """The expert-parallel MoE on a one-rank NCCL group on the card: reduced
+    granite-moe-3b-a800m in bf16, 4 experts padded to 6 (a group of 3's
+    layout, so two dead slots), at capacity factor 2.0 (at A = 1, C = T k cf
+    holds every choice) against its single-device oracle, within a relative
+    error (max |a - b| / max |b|) of 2e-2 (both in bf16, their products
+    batched differently), with three collectives a call and no choice on a
+    dead expert."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, moe_ep
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        cfg = get_config("granite-moe-3b-a800m").reduced()
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=2.0)
+        p = moe.init_moe(torch.Generator("cuda").manual_seed(0), cfg)
+        pp, E_pad = moe_ep.pad_experts(p, cfg, 3)
+        assert E_pad == 6 and not pp["gate"][4:].any()
+        x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator("cuda").manual_seed(1),
+                        device="cuda").bfloat16()
+        moe_ep.moe_mlp_ep.collectives = 0
+        got = moe_ep.moe_mlp_ep(pp, x, cfg, dist.group.WORLD)
+        assert moe_ep.moe_mlp_ep.collectives == 3
+        want = moe_ep.moe_ep_ref(pp, x, cfg)
+        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        assert rel <= 2e-2, rel
+        assert moe_ep.route(pp["router"], x, cfg)[1].max().item() < cfg.num_experts
+    finally:
+        dist.destroy_process_group()

@@ -153,7 +153,8 @@ def test_port_init_draws_the_reference_shapes():
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module of repro_torch, and chip_smoke.py, import in a fresh
-    interpreter without pulling in jax or the JAX package."""
+    interpreter without pulling in jax or the JAX package; the walk reaches
+    every subpackage (core, sharding, models, cluster among them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -165,6 +166,9 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(mods) > 20 and not bad, (len(mods), bad)\n"
+        "need = {'repro_torch.core.perf_model', 'repro_torch.sharding.rules',\n"
+        "        'repro_torch.models.moe_ep', 'repro_torch.cluster.simulator'}\n"
+        "assert need <= set(mods), sorted(need - set(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env,
