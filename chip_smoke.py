@@ -126,7 +126,25 @@
    holds), and full-width granite's weights placed over the mesh with
    ``distribute_params`` (every local shard equal to its leaf); then a
    ``multi_device summary`` line.
-11. Prints the kernel table as one JSON line (flash prefill at S=512, at
+11. Phase 7 (dryrun_examples): ``repro_torch.launch.dryrun`` in a
+   subprocess on the host (fake process groups of 256 ranks over meta
+   tensors; none meets the card's process): tinyllama-1.1b at decode_32k,
+   prefill_32k and train_4k and rwkv6-1.6b at long_500k, one ``dryrun
+   case`` JSON line each (per-device dot FLOPs, the ratio of the cluster
+   count to the analytic model's, the dominant roofline term, collective
+   bytes by kind, argument GB per device, seconds); the reference's gate,
+   0.2 < ratio < 5, on decode_32k and long_500k. Meanwhile one full-width
+   tinyllama-1.1b ``decode_step`` (bf16, seeded random weights, B=8 over a
+   4096-token cache) on the card: its FLOPs by ``FlopCounterMode`` on the
+   real tensors must equal the dry run's count of the same shape on a (1,
+   1) mesh; its time on CUDA events prints beside the roofline's compute
+   and memory terms for that shape, with the card line. Then the five
+   ``examples/torch_*.py`` side by side in subprocesses on the card (the
+   simulator's and the serving script's durations cut to 10 s each), each
+   exiting 0;
+   quickstart must launch the flash kernel and both serving examples both
+   kernels; then a ``dryrun_examples summary`` line.
+12. Prints the kernel table as one JSON line (flash prefill at S=512, at
    S=2048 and on the chunk shape, the granite rows, gemma2's and
    phi-3-vision's prefill shapes, and zamba2's hd 112, whisper's encoder and
    cross shapes, each row with its ratio to the library call and its
@@ -2736,6 +2754,202 @@ def multi_device_path() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the dry run and the examples (dryrun_examples)
+# ---------------------------------------------------------------------------
+
+#: the dry run's cases, counted on the card machine's torch; the reference's
+#: gate (the count over the analytic model's within DRYRUN_RATIO) holds on
+#: its two cases, the others print their reading
+DRYRUN_CASES = [("tinyllama-1.1b", "decode_32k"), ("tinyllama-1.1b", "prefill_32k"),
+                ("tinyllama-1.1b", "train_4k"), ("rwkv6-1.6b", "long_500k")]
+DRYRUN_GATED = {("tinyllama-1.1b", "decode_32k"), ("rwkv6-1.6b", "long_500k")}
+DRYRUN_RATIO = (0.2, 5.0)
+#: one real decode_step at full width, its FLOPs counted both ways and timed
+COUNT_ARCH, COUNT_BATCH, COUNT_CTX, COUNT_ITERS = "tinyllama-1.1b", 8, 4096, 10
+#: each example's arguments (its defaults, or its smallest where they would
+#: take over a minute) and the kernels it must launch on the card
+EXAMPLES = {
+    "torch_quickstart.py": ([], ("flash_prefill",)),
+    "torch_colocation_sim.py": (["--duration", "10"], ()),
+    "torch_serve_online_offline.py": (["--duration", "10"],
+                                      ("flash_prefill", "paged_attention")),
+    "torch_serve_gateway.py": ([], ("flash_prefill", "paged_attention")),
+    "torch_train_tiny.py": ([], ()),
+}
+#: runs one example as ``__main__`` in a fresh interpreter, then prints its
+#: kernel launches (the wrappers' counts, 0 at the start of the process) and
+#: exits with the example's code
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+sys.argv = sys.argv[2:]
+code = 0
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    code = e.code or 0
+print("launches " + json.dumps({"flash_prefill": fp_ops.flash_attention.launches,
+                                "paged_attention": pa_ops.paged_attention.launches}))
+sys.exit(code)
+"""
+
+
+def dryrun_child(cases: str) -> None:
+    """Phase 7's subprocess, so that no fake process group meets the card's
+    process: each dry-run case as a ``dryrun case`` JSON line, then the dry
+    run's count of one decode_step at COUNT_* on a (1, 1) mesh as ``dryrun
+    count``."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, hlo_analysis, specs as sp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    failed = 0
+    for arch, shape in json.loads(cases):
+        t0 = time.perf_counter()
+        try:
+            res = dryrun.lower_case(arch, shape)
+        except Exception as e:  # printed, and the child exits 1 after the last case
+            failed += 1
+            print("dryrun case " + json.dumps({"arch": arch, "shape": shape,
+                                               "error": f"{type(e).__name__}: {e}"}), flush=True)
+            continue
+        rf = res["roofline"]
+        print("dryrun case " + json.dumps({
+            "arch": arch, "shape": shape, "mesh": res["mesh"],
+            "flops_per_device": rf["hlo_flops_per_device"],
+            "ratio": rf["hlo_flops_cluster"] / rf["analytic_flops_cluster"],
+            "dominant": rf["dominant"], "collective_bytes": rf["collective_breakdown"],
+            "argument_gb_per_device": res["memory"]["argument_bytes"] / 1e9,
+            "seconds": time.perf_counter() - t0}), flush=True)
+    cfg = get_config(COUNT_ARCH)
+    model = build_model(cfg, backend="ref")
+    with dryrun.fake_group(1):
+        # every tensor replicated: torch 2.11's DTensor refuses einsum's
+        # flatten of a dim sharded over a mesh dim of size 1
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        whole = [Replicate(), Replicate()]
+        params = _tree_map(lambda t: distribute_tensor(t, mesh, whole),
+                           sp.abstract_params(model))
+        cache = _tree_map(lambda t: distribute_tensor(t, mesh, whole), model.init_cache(
+            COUNT_BATCH, COUNT_CTX, prefilled_len=COUNT_CTX - 1, device="meta"))
+        tokens = distribute_tensor(torch.empty(COUNT_BATCH, dtype=torch.int32, device="meta"),
+                                   mesh, whole)
+        with implicit_replication():
+            hlo = hlo_analysis.analyze(model.decode_step, params, tokens, cache)
+    print("dryrun count " + json.dumps(hlo), flush=True)
+    sys.exit(1 if failed else 0)
+
+
+def run_example(script: str, args: list, must: tuple) -> dict:
+    """One example in a subprocess on DEVICE: exit code 0, and on the card a
+    launch of every kernel in ``must``. Its wall time is taken with the other
+    examples running beside it."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER, str(ROOT / "src"),
+                          str(ROOT / "examples" / script), "--device", DEVICE, *args],
+                         capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    launches = (json.loads(lines[-1][len("launches "):])
+                if lines and lines[-1].startswith("launches ") else {})
+    last = lines[-2] if len(lines) > 1 else ""
+    print(f"example {script} {' '.join(args)}: exit {out.returncode} in {wall:.1f} s; "
+          f"launches {launches}; last line: {last}")
+    check(out.returncode == 0, f"{script} exited {out.returncode}: {out.stderr[-2000:]}")
+    if DEVICE == "cuda":
+        missing = [k for k in must if not launches.get(k)]
+        check(not missing, f"{script} launched no {missing}")
+    return {"exit": out.returncode, "wall_s": wall, "launches": launches, "last_line": last}
+
+
+def dryrun_examples() -> dict:
+    """Phase 7: the dry run's cases in a subprocess on the host while one
+    full-width decode_step is built and counted on the card (its FLOPs by
+    FlopCounterMode on the real tensors equal to the dry run's count at (1,
+    1)); the step timed beside the roofline terms once the dry run is done;
+    then the five examples, side by side."""
+    import concurrent.futures
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import roofline_terms
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.dryrun_child(sys.argv[2])", str(ROOT),
+         json.dumps(DRYRUN_CASES)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=str(ROOT))
+    try:
+        cfg = get_config(COUNT_ARCH)
+        model = build_model(cfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        params = model.init(gen)
+        cache = model.init_cache(COUNT_BATCH, COUNT_CTX, prefilled_len=COUNT_CTX - 1,
+                                 device=DEVICE)
+        tokens = torch.randint(0, cfg.vocab_size, (COUNT_BATCH,), generator=gen,
+                               device=DEVICE, dtype=torch.int32)
+        with FlopCounterMode(display=False) as fc:
+            logits, _ = model.decode_step(params, tokens, cache)
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (COUNT_BATCH,
+                                                                        cfg.vocab_size),
+              "decode_step: logits not finite or of the wrong shape")
+        flops = fc.get_total_flops()
+        # timed once the dry run is done: it would share the host's cores
+        out, err = child.communicate(timeout=900)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+        step_ms = time_ms(lambda: model.decode_step(params, tokens, cache), COUNT_ITERS, flush)
+        del flush, params, cache, model
+        torch.cuda.empty_cache()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    cases, count = [], None
+    for line in out.splitlines():
+        if line.startswith("dryrun case "):
+            r = json.loads(line[len("dryrun case "):])
+            cases.append(r)
+            print(line)
+            if "error" not in r and (r["arch"], r["shape"]) in DRYRUN_GATED:
+                lo, hi = DRYRUN_RATIO
+                check(lo < r["ratio"] < hi, f"dry run {r['arch']} x {r['shape']}: count over "
+                      f"the analytic model's {r['ratio']:.3f}, outside {DRYRUN_RATIO}")
+        elif line.startswith("dryrun count "):
+            count = json.loads(line[len("dryrun count "):])
+    check(child.returncode == 0, f"dry run exited {child.returncode}: {err[-3000:]}")
+    check(len(cases) == len(DRYRUN_CASES) and count is not None,
+          "the dry run printed too few lines")
+    dry = count["dot_flops_per_device"]
+    shape = InputShape(f"decode_b{COUNT_BATCH}_ctx{COUNT_CTX}", COUNT_CTX, COUNT_BATCH, "decode")
+    rf = roofline_terms(cfg, shape, count, 1, False)
+    print(f"dryrun step: {COUNT_ARCH} decode_step B={COUNT_BATCH} ctx={COUNT_CTX} on "
+          f"{DEVICE}: FlopCounterMode {flops:.6e} FLOPs, the dry run's count at (1, 1) "
+          f"{dry:.6e} ({'equal' if flops == dry else 'DIFFER'}); {step_ms:.3f} ms a step "
+          f"against compute_s {rf['compute_s'] * 1e3:.4f} ms and memory_s "
+          f"{rf['memory_s'] * 1e3:.4f} ms (analytic bytes {rf['analytic_bytes_cluster']:.4e}); "
+          f"card: {card_line()}")
+    check(flops == dry, f"FlopCounterMode read {flops}, the dry run's count {dry}")
+    # all five at once: each is checked for its exit code and launches only
+    with concurrent.futures.ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        runs = {script: pool.submit(run_example, script, args, must)
+                for script, (args, must) in EXAMPLES.items()}
+    examples = {script: run.result() for script, run in runs.items()}
+    return {"cases": cases, "step": {"flops": flops, "dry_run_flops": dry, "ms": step_ms,
+                                     "compute_ms": rf["compute_s"] * 1e3,
+                                     "memory_ms": rf["memory_s"] * 1e3},
+            "examples": {k: {"wall_s": v["wall_s"], "launches": v["launches"]}
+                         for k, v in examples.items()},
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import concurrent.futures
     import multiprocessing
@@ -2857,6 +3071,8 @@ def run(train_data) -> int:
         "phase_s": time.perf_counter() - t0}))
     # phase 6: the multi-device layer
     print("multi_device summary " + json.dumps(multi_device_path()))
+    # phase 7: the dry run and the examples
+    print("dryrun_examples summary " + json.dumps(dryrun_examples()))
     # launches by path: phase 1 (co-located) and phase 2 (default
     # configuration); flash launches split into whole prompts and chunks
     whole_n = {"colocated": colocated["flash_prefill_whole_prompt"],

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import constrain, heads_ready, write_slots_
 
 
 def init_attn(gen, cfg: ModelConfig, stack: tuple = ()):
@@ -44,7 +45,8 @@ def init_attn(gen, cfg: ModelConfig, stack: tuple = ()):
 def _project_q(p, x, cfg: ModelConfig, positions, rope: bool = True):
     """x (B,S,d); positions (B,S). Returns q (B,S,Hq,hd)."""
     B, S, _ = x.shape
-    q = layers.dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim_)
+    q = heads_ready(layers.dense(p["wq"], x), cfg.num_heads).reshape(
+        B, S, cfg.num_heads, cfg.head_dim_)
     if cfg.qk_norm:
         q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
     if rope:
@@ -57,8 +59,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, rope: bool = True):
     B, S, _ = x.shape
     hd = cfg.head_dim_
     q = _project_q(p, x, cfg, positions, rope)
-    k = layers.dense(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
-    v = layers.dense(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    hkv = cfg.num_kv_heads
+    k = heads_ready(layers.dense(p["wk"], x), hkv).reshape(B, S, hkv, hd)
+    v = heads_ready(layers.dense(p["wv"], x), hkv).reshape(B, S, hkv, hd)
     if cfg.qk_norm:
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     if rope:
@@ -76,11 +79,12 @@ def naive_attention(q, k, v, *, q_offset: int = 0, causal: bool = True, window: 
     Skv, Hkv, hd) -> (B, Sq, Hq, hd) in q's dtype. The flash kernel's plain
     version, which materializes the scores: so it is also the reference's
     training-time ``naive_attention_xla``."""
+    q = heads_ready(q, k.shape[2], dim=2)   # the plain version groups Hq by Hkv
     out = flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             kv_len=k.shape[1], q_offset=q_offset, causal=causal,
                             window=window, logit_softcap=logit_softcap, scale=scale,
                             kv_lens=kv_lens)
-    return out.transpose(1, 2)
+    return heads_ready(out.transpose(1, 2), k.shape[2], dim=2)
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset=0,
@@ -99,7 +103,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offs
     if kv_lens is None:
         kv_lens = torch.full((B,), Skv, dtype=torch.int32, device=dev)
     kv_lens = torch.as_tensor(kv_lens, device=dev)
-    qg = q.reshape(B, Sq, Hkv, G, hd).float()
+    qg = heads_ready(q, Hkv, dim=2).reshape(B, Sq, Hkv, G, hd).float()
     q_pos = (torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
              + torch.arange(Sq, device=dev)).expand(B, Sq)
     m = torch.full((B, Hkv, G, Sq), NEG_INF, device=dev)
@@ -124,7 +128,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offs
         acc = acc * alpha[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p, vb)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
+    return heads_ready(out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd), Hkv, dim=2).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, logit_softcap: float = 0.0,
@@ -139,14 +143,14 @@ def decode_attention(q, k_cache, v_cache, lengths, *, logit_softcap: float = 0.0
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / np.sqrt(hd)
-    qg = q.reshape(B, Hkv, G, hd).float()
+    qg = heads_ready(q, Hkv, dim=1).reshape(B, Hkv, G, hd).float()
     s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float()) * scale
     s = layers.softcap(s, logit_softcap)
     valid = torch.arange(C, device=q.device)[None, :] < lengths.clamp(max=C)[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
-    return out.reshape(B, Hq, hd).to(q.dtype)
+    return heads_ready(out.reshape(B, Hq, hd), Hkv, dim=1).to(q.dtype)
 
 
 def _attend(q, k, v, cfg: ModelConfig, *, backend: str, causal: bool = True,
@@ -183,6 +187,11 @@ def attn_prefill(p, x, positions, cfg: ModelConfig, *, window: int = 0,
     else:   # the reference projects x's K/V here too, and drops them
         q, (k, v) = _project_q(p, x, cfg, positions, rope), cross_kv
         causal = False
+    # the dry run's sequence-sharded attention for head counts that do not
+    # divide the "model" axis (names mapped only by ``launch.dryrun``)
+    q = constrain(q, "attn_q_seq")
+    k = constrain(k, "attn_kv_rep")
+    v = constrain(v, "attn_kv_rep")
     n = fp_ops.flash_attention.launches
     out = _attend(q, k, v, cfg, backend=backend, causal=causal, window=window,
                   kv_lens=kv_lens)
@@ -191,7 +200,9 @@ def attn_prefill(p, x, positions, cfg: ModelConfig, *, window: int = 0,
     key = (S, window, q.shape[-1], causal, k.shape[1])
     launched = attn_prefill.flash_launches
     launched[key] = launched.get(key, 0) + fp_ops.flash_attention.launches - n
-    out = layers.dense(p["wo"], out.reshape(B, S, -1))
+    out = constrain(out, "attn_out_rep")
+    # its gradient is viewed back into heads
+    out = layers.dense(p["wo"], heads_ready(out.reshape(B, S, -1), cfg.num_heads))
     return out, (k, v)
 
 
@@ -219,7 +230,9 @@ def attn_decode(p, q, cache_k, cache_v, lengths, cfg: ModelConfig):
     (B,C,Hkv,hd) that ALREADY hold the current token's k/v (the caller
     writes them first, so it owns the cache layout). Returns (B,1,d)."""
     B = q.shape[0]
-    out = decode_attention(q[:, 0], cache_k, cache_v, lengths,
+    # with head counts that do not divide the "model" axis the dry run keeps
+    # q replicated over it, so the seq-sharded cache is attended locally
+    out = decode_attention(constrain(q[:, 0], "attn_q_dec"), cache_k, cache_v, lengths,
                            logit_softcap=cfg.attn_logit_softcap)
     return layers.dense(p["wo"], out.reshape(B, 1, -1))
 
@@ -229,11 +242,9 @@ def write_decode_cache(cache_k, cache_v, k_new, v_new, positions):
     (B,C,Hkv,hd), k_new/v_new (B,1,Hkv,hd), positions (B,) absolute. Slot =
     position % C (a ring of C >= the longest sequence is a plain cache).
     Returns the caches (the same tensors; the reference returns new arrays)."""
-    B, C = cache_k.shape[0], cache_k.shape[1]
-    slot = positions % C
-    rows = torch.arange(B, device=cache_k.device)
-    cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
+    slot = positions % cache_k.shape[1]
+    write_slots_(cache_k, slot, k_new[:, 0])
+    write_slots_(cache_v, slot, v_new[:, 0])
     return cache_k, cache_v
 
 

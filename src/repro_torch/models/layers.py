@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.ctx import reduce_partial
+
 
 _init = threading.local()
 
@@ -57,7 +59,7 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
 
 
 def dense(p, x):
-    y = x @ p["w"]
+    y = reduce_partial(x @ p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
@@ -177,5 +179,8 @@ def cross_entropy_loss(logits, labels):
     logits = logits.float()
     valid = (labels >= 0).float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0] - logz
+    # a vocab-sharded DTensor's pick is a masked partial sum: reduced where
+    # it is gathered, at the shape its mask has
+    picked = reduce_partial(logits.gather(-1, labels.clamp(min=0)[..., None].long()))
+    ll = picked[..., 0] - logz
     return -(ll * valid).sum() / valid.sum().clamp(min=1.0)

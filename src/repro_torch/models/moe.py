@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import heads_ready, local_contiguous
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, stack: tuple = ()):
@@ -109,7 +110,7 @@ def moe_dispatch(p, x, cfg: ModelConfig, *, groups: int = 16):
     # scatter token ids into (E*C + 1) slots, then gather token features
     tok_of_choice = (torch.arange(Tg * k, device=dev) // k).expand(G, -1)
     buf = torch.full((G, E * C + 1), Tg, dtype=torch.long, device=dev)  # Tg = dummy token
-    buf.scatter_(1, slot, tok_of_choice)
+    buf = buf.scatter(1, slot, tok_of_choice)   # out of place: DTensor slots need no in-place buf
     sel = buf[:, : E * C].reshape(G, E, C)                       # token id per slot
     x_pad = torch.cat([xt, xt.new_zeros(G, 1, d)], dim=1)
     gi = torch.arange(G, device=dev)[:, None, None]
@@ -118,9 +119,10 @@ def moe_dispatch(p, x, cfg: ModelConfig, *, groups: int = 16):
     # expert FFNs, batched over E
     h = F.silu(torch.einsum("gecd,edf->gecf", ein, p["gate"]))
     h = h * torch.einsum("gecd,edf->gecf", ein, p["up"])
-    eout = torch.einsum("gecf,efd->gecd", h, p["down"])          # (G,E,C,d)
+    eout = torch.einsum("gecf,efd->gecd", local_contiguous(h), p["down"])  # (G,E,C,d)
 
     # combine: route expert outputs back to tokens with gate weights
+    eout = heads_ready(eout, E, dim=1)   # 40 experts over 16 shards cannot flatten
     eout_flat = torch.cat([eout.reshape(G, E * C, d), eout.new_zeros(G, 1, d)], dim=1)
     per_choice = eout_flat[torch.arange(G, device=dev)[:, None], slot]  # (G,Tg*k,d)
     w = (gates.reshape(G, Tg * k) * keep).float()

@@ -13,6 +13,7 @@ from repro_torch.kernels import require_device
 from repro_torch.models import layers, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _tree_unbind, remat_call
+from repro_torch.sharding.ctx import constrain
 
 
 class RWKVModel:
@@ -49,6 +50,7 @@ class RWKVModel:
 
     def _layer(self, lp, x, tm_x, cm_x, wkv):
         cfg = self.cfg
+        x = constrain(x, "act_btd")
         h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         out, tm_x, wkv = rwkv6.time_mix(lp["body"]["tm"], h, cfg, tm_x, wkv)
         x = x + out
@@ -76,7 +78,7 @@ class RWKVModel:
         padded length of every row."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = params["embed"][tokens]
+        x = constrain(params["embed"][tokens], "act_btd")
         x, state = self._forward(params, x, self.init_cache(B, device=x.device))
         lens = batch.get("lengths")
         lens = (torch.full((B,), S, dtype=torch.int32, device=x.device) if lens is None
@@ -95,6 +97,6 @@ class RWKVModel:
     def loss(self, params, batch):
         """batch: tokens (B,S), labels (B,S) with -1 ignored."""
         tokens = batch["tokens"]
-        x = params["embed"][tokens]
+        x = constrain(params["embed"][tokens], "act_btd")
         x, _ = self._forward(params, x, self.init_cache(tokens.shape[0], device=x.device))
         return layers.cross_entropy_loss(self._logits(params, x), batch["labels"])

@@ -35,6 +35,7 @@ import torch.utils.checkpoint
 from repro_torch.kernels import BACKENDS, require_device
 from repro_torch.models import attention, layers, moe as moe_lib
 from repro_torch.models.config import AUDIO, VLM, ModelConfig
+from repro_torch.sharding.ctx import constrain
 
 Params = Any
 
@@ -188,7 +189,7 @@ class Transformer:
         x = params["embed"][tokens]
         if self.cfg.embed_scale:
             x = x * torch.tensor(np.sqrt(self.cfg.d_model), dtype=x.dtype)
-        return x
+        return constrain(x, "act_btd")
 
     def _logits(self, params, x):
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
@@ -226,6 +227,7 @@ class Transformer:
         sizes = self._cache_sizes(cache_len) if cache_len else [0] * len(windows)
 
         def body(group, x):
+            x = constrain(x, "act_btd")
             kvs, routings = [], []
             for lp, c in group:
                 x, kv, routing = block_prefill(

@@ -22,6 +22,7 @@ from repro_torch.kernels import BACKENDS, require_device
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import NAIVE_TRAIN_MAX_SEQ, _tree_unbind, remat_call
+from repro_torch.sharding.ctx import constrain, heads_ready
 
 
 class WhisperModel:
@@ -69,13 +70,14 @@ class WhisperModel:
         backend = backend or self.backend
         B, T, _ = frames.shape
         frames = frames.to(cfg.torch_dtype)
-        x = frames + layers.sinusoidal_positions_on(T, cfg.d_model, frames.dtype,
-                                                    frames.device)[None]
+        x = constrain(frames + layers.sinusoidal_positions_on(
+            T, cfg.d_model, frames.dtype, frames.device)[None], "act_btd")
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
         if frame_lens is None:
             frame_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
 
         def layer(lp, x):
+            x = constrain(x, "act_btd")
             h = layers.layernorm(lp["ln1"], x, cfg.norm_eps)
             a, _ = attention.attn_prefill(lp["attn"], h, positions, cfg, causal=False,
                                           kv_lens=frame_lens, backend=backend)
@@ -92,9 +94,10 @@ class WhisperModel:
         """A layer's cross K/V (B, T, Hkv, hd) of the encoder output."""
         B, T, _ = enc_out.shape
         cfg = self.cfg
-        shape = (B, T, cfg.num_kv_heads, cfg.head_dim_)
-        k = layers.dense(lp["cross_attn"]["wk"], enc_out).reshape(shape)
-        v = layers.dense(lp["cross_attn"]["wv"], enc_out).reshape(shape)
+        hkv = cfg.num_kv_heads
+        shape = (B, T, hkv, cfg.head_dim_)
+        k = heads_ready(layers.dense(lp["cross_attn"]["wk"], enc_out), hkv).reshape(shape)
+        v = heads_ready(layers.dense(lp["cross_attn"]["wv"], enc_out), hkv).reshape(shape)
         return k, v
 
     def _dec_forward(self, params, x, positions, tok_lens, enc_out, enc_lens,
@@ -106,6 +109,7 @@ class WhisperModel:
         backend = backend or self.backend
 
         def layer(lp, x):
+            x = constrain(x, "act_btd")
             h = layers.layernorm(lp["ln1"], x, cfg.norm_eps)
             a, (k, v) = attention.attn_prefill(lp["self_attn"], h, positions, cfg,
                                                kv_lens=tok_lens, backend=backend)
@@ -195,7 +199,8 @@ class WhisperModel:
             attention.write_decode_cache(sk, sv, k_new, v_new, pos)
             x = x + attention.attn_decode(lp["self_attn"], q, sk, sv, lengths, cfg)
             h = layers.layernorm(lp["ln2"], x, cfg.norm_eps)
-            q = layers.dense(lp["cross_attn"]["wq"], h).reshape(B, cfg.num_heads, cfg.head_dim_)
+            q = heads_ready(layers.dense(lp["cross_attn"]["wq"], h), cfg.num_heads).reshape(
+                B, cfg.num_heads, cfg.head_dim_)
             a = attention.decode_attention(q, cache["cross_k"][i], cache["cross_v"][i],
                                            cache["enc_lens"])
             x = x + layers.dense(lp["cross_attn"]["wo"], a.reshape(B, 1, -1))

@@ -23,6 +23,7 @@ from repro_torch.models import attention, layers, mamba2
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (NAIVE_TRAIN_MAX_SEQ, _tree_unbind, block_decode,
                                             block_prefill, init_block, remat_call)
+from repro_torch.sharding.ctx import constrain
 
 
 class Zamba2Model:
@@ -100,6 +101,7 @@ class Zamba2Model:
 
     # --- forward ----------------------------------------------------------
     def _mamba_layer(self, lp, x):
+        x = constrain(x, "act_btd")
         h = layers.rmsnorm(lp["ln"], x, self.cfg.norm_eps)
         out, (conv, ssm) = mamba2.mamba_prefill(lp["mamba"], h, self.cfg)
         return x + out, conv, ssm
@@ -131,7 +133,7 @@ class Zamba2Model:
         tokens = batch["tokens"]
         B, S = tokens.shape
         cache_len = cache_len or S
-        x = params["embed"][tokens]
+        x = constrain(params["embed"][tokens], "act_btd")
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         lens = batch.get("lengths")
         lens = (torch.full((B,), S, dtype=torch.int32, device=x.device) if lens is None
@@ -181,7 +183,7 @@ class Zamba2Model:
         NAIVE_TRAIN_MAX_SEQ positions, by key blocks past that."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = params["embed"][tokens]
+        x = constrain(params["embed"][tokens], "act_btd")
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
         backend = "ref" if S <= NAIVE_TRAIN_MAX_SEQ else "blockwise"

@@ -45,10 +45,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1) -> Ca
                                  f"{microbatches} microbatches")
             parts = {k: v.chunk(microbatches) for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+            # each accumulator placed as its param, where params are DTensors
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
             for i in range(microbatches):
                 l, g = loss_and_grads(tree, leaves, {k: v[i] for k, v in parts.items()})
-                loss += l
+                loss = loss + l
                 for acc, x in zip(grads, g):
                     acc.add_(x)
                 del g   # not alive through the next microbatch's backward

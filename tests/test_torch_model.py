@@ -154,7 +154,8 @@ def test_port_init_draws_the_reference_shapes():
 def test_port_imports_neither_jax_nor_repro():
     """Every module of repro_torch, and chip_smoke.py, import in a fresh
     interpreter without pulling in jax or the JAX package; the walk reaches
-    every subpackage (core, sharding, models, cluster among them)."""
+    every subpackage (core, sharding, models, cluster among them), the dry
+    run among the modules, and no import starts a process group."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -167,8 +168,11 @@ def test_port_imports_neither_jax_nor_repro():
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(mods) > 20 and not bad, (len(mods), bad)\n"
         "need = {'repro_torch.core.perf_model', 'repro_torch.sharding.rules',\n"
-        "        'repro_torch.models.moe_ep', 'repro_torch.cluster.simulator'}\n"
+        "        'repro_torch.models.moe_ep', 'repro_torch.cluster.simulator',\n"
+        "        'repro_torch.launch.dryrun', 'repro_torch.launch.hlo_analysis'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import started a process group'\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env,
