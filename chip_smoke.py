@@ -32,7 +32,11 @@
    attention from prompts of 64 and 40 tokens over them), each with its
    planted faults in the plain version (causal=True, each row's last key
    tile dropped, hd 112's columns 96-111 zeroed) at least 10 tolerances
-   away; and their times beside SDPA with an additive mask.
+   away; and their times beside SDPA with an additive mask. Paged decode
+   and every chunk case again at phase 3b's heads (``ENGINE_ARCHS``:
+   phi-3-vision-4.2b's 32/32 at hd 96, G = 1; tinyllama-1.1b's 32/4 at hd
+   64, G = 8; qwen3-8b's 32/8 at hd 128), each timed beside SDPA on a
+   pre-gathered cache and SDPA with a boolean mask.
 3. Phase 1: full-width qwen2.5-7b (28 layers, bf16, seeded random weights)
    served by the port's PoolRuntime in CoLocatedServer's configuration
    (ooco, 1 strict + 1 relaxed engine, decode bucket 8, whole-prompt
@@ -63,7 +67,28 @@
    ``/v1/generate`` calls, one ``/v1/cancel``, the api's selftest, then a
    drain. Every stream ends in exactly one outcome, finished streams carry
    the runtime's tokens, no page leaks, both kernels launch. The client's
-   TTFT and time per token print beside the runtime's own.
+   TTFT and time per token print beside the runtime's own. Before serving,
+   one K=4 decode horizon in which masked rows and padding rows write and
+   read the trash page's slot 0 runs three times from one state
+   (``horizon_repeats``), first without the MoE engine's trash rule
+   (printed), then with it: its token blocks and the pools it leaves must
+   be identical. Phases 1 and 3 print the kernels a decode step launches.
+6b. Phase 3b (engine_archs): the other archs the engine serves that one
+   card holds, each at full width and depth with seeded random bf16
+   weights, one after the other, its weights and pools freed before the
+   next: phi-3-vision-4.2b (32 layers, 32/32 heads at hd 96, text prompts),
+   tinyllama-1.1b (22 layers, 32/4 at hd 64: G = 8) and qwen3-8b (36
+   layers, 32/8 at hd 128, qk_norm). Each: kernels vs plain logits and the
+   engine checks of item 4; both kernels must launch (flash at q_offset >
+   0). Then the bf16 floor and the engine witness: an f32 plain engine on
+   the same prompt; the bf16 plain engine's distance to its first-token
+   and decode-step logits prints beside the kernels-vs-plain distance, and
+   the kernel engine's decode-step logits may be at most 1.5x as far from
+   the f32 ones as the bf16 plain engine's are, a planted fault (64 keys
+   dropped in every paged launch) over that limit. phi-3-vision then serves
+   the default configuration of phase 2 through ``PoolRuntime`` (its bs_sat
+   memo filled at start-up and timed): every request finishes, with mixed
+   steps and prefix hits.
 7. Phase 4 (model_api): the whole-model ``Transformer`` API at full width
    and depth with seeded random bf16 weights, one model after the other:
    gemma2-2b (26 layers alternating a 4096 window and global attention, hd
@@ -145,7 +170,8 @@
    quickstart must launch the flash kernel and both serving examples both
    kernels; then a ``dryrun_examples summary`` line.
 12. Prints the kernel table as one JSON line (flash prefill at S=512, at
-   S=2048 and on the chunk shape, the granite rows, gemma2's and
+   S=2048 and on the chunk shape, the granite rows, phase 3b's paged and
+   chunk rows, gemma2's and
    phi-3-vision's prefill shapes, and zamba2's hd 112, whisper's encoder and
    cross shapes, each row with its ratio to the library call and its
    launches by path), the card line again, and last
@@ -157,6 +183,7 @@ script exits 1 at once. It imports nothing of JAX and nothing of ``repro``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -174,7 +201,9 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM data sheet
 # summation order and, in flash prefill, P rounded to bf16 before P @ V
 # (2^-9 relative on weights that sum to 1, over |V| of a few units).
 ATOL, RTOL = 1e-2, 2.0 ** -7
-LOGITS_REL_TOL = 5e-2  # kernels vs plain versions through 28 bf16 layers
+# kernels vs plain versions through 22-36 bf16 layers; phase 3b prints each
+# model's own bf16-vs-f32 distance beside it (``engine_witness``)
+LOGITS_REL_TOL = 5e-2
 # The MoE model (granite-moe-3b-a800m, 32 layers, 40 experts top-8): one bf16
 # difference in a router logit can swap a token's 8th expert for its 9th, a
 # discrete change of about 1/8 of that token's MoE output, which later layers
@@ -187,6 +216,8 @@ QWEN_HEADS = (28, 4, 128)     # qwen2.5-7b: Hq, Hkv, hd (G = 7)
 GRANITE_HEADS = (24, 8, 64)   # granite-moe-3b-a800m: Hq, Hkv, hd (G = 3)
 GEMMA2_HEADS = (8, 4, 256)    # gemma2-2b: Hq, Hkv, hd (G = 2)
 PHI3V_HEADS = (32, 32, 96)    # phi-3-vision-4.2b: Hq, Hkv, hd (G = 1)
+TINYLLAMA_HEADS = (32, 4, 64)  # tinyllama-1.1b: G = 8, the paged kernel's largest group
+QWEN3_HEADS = (32, 8, 128)    # qwen3-8b (qk_norm): G = 4
 #: the model_api phase's prefill attention, per model: heads, kv_lens of the
 #: two rows (the batch is padded to the longest), window, attention softcap.
 #: gemma2's local layers (window 4096) are timed; its global ones differ only
@@ -878,37 +909,47 @@ def recorded_routing(S: int, bucket: int = 8):
         moe_lib._route = orig
 
 
-def logits_agree(model, params, cfg) -> None:
-    """One prompt at full width through a kernel engine and a plain-version
-    engine (``backend="ref"``, asked for by name) over the same weights:
-    the next-token logits of a decode step on the same input token agree
-    (an MoE model: within its own tolerance, and the share of its routing
-    choices that differ is reported and gated)."""
+def engine_logits(model, params, prompt, backend, tok=None):
+    """``prompt`` prefilled by an engine of ``backend`` over ``params``, then
+    one decode step on token ``tok`` (the engine's own sample where None):
+    its next-token logits in f32, the token, the routing choices the MoE
+    calls made (none for a dense model) and the prefill's first-token
+    logits in f32."""
     import torch
     from repro_torch.core.request import Kind, Request
     from repro_torch.engine.engine import ServingEngine
 
+    eng = ServingEngine(model, params, num_pages=64, decode_buckets=(8,),
+                        backend=backend, device=DEVICE)
+    req = Request(Kind.ONLINE, 0.0, len(prompt), 4)
+    eng.add_request(req, prompt)
+    with recorded_routing(len(prompt)) as seen:
+        with recorded_logits(model) as first:
+            eng.prefill(req.rid)
+        _, _, tokens, positions, tables, lengths = eng._decode_args([req.rid])
+        tok = tokens[0] if tok is None else tok
+        tokens[0] = tok
+        with torch.inference_mode():
+            out = eng._decode_logits(*(torch.as_tensor(a, device=DEVICE) for a in (
+                tokens.astype("int64"), positions.astype("int64"), tables, lengths)))
+    eng.release(req.rid)
+    return out[0].float(), tok, seen, first[-1][0]
+
+
+def logits_agree(model, params, cfg) -> dict:
+    """One prompt at full width through a kernel engine and a plain-version
+    engine (``backend="ref"``, asked for by name) over the same weights:
+    the next-token logits of a decode step on the same input token agree
+    (an MoE model: within its own tolerance, and the share of its routing
+    choices that differ is reported and gated). Returns the prompt, the
+    token and both logits, for ``engine_witness``."""
+    import torch
+
     S = 300
     prompt = torch.randint(0, cfg.vocab_size, (S,),
                            generator=torch.Generator().manual_seed(7)).tolist()
-    logits, routes, tok = [], [], None
-    for backend in ("auto", "ref"):
-        eng = ServingEngine(model, params, num_pages=64, decode_buckets=(8,),
-                            backend=backend, device=DEVICE)
-        req = Request(Kind.ONLINE, 0.0, len(prompt), 4)
-        eng.add_request(req, prompt)
-        with recorded_routing(S) as seen:
-            eng.prefill(req.rid)
-            _, _, tokens, positions, tables, lengths = eng._decode_args([req.rid])
-            tok = tokens[0] if tok is None else tok     # same input token on both
-            tokens[0] = tok
-            with torch.inference_mode():
-                out = eng._decode_logits(*(torch.as_tensor(a, device=DEVICE) for a in (
-                    tokens.astype("int64"), positions.astype("int64"), tables, lengths)))
-        logits.append(out[0].float())
-        routes.append(seen)
-        eng.release(req.rid)
-    ker, pln = logits
+    ker, tok, rk, ker_first = engine_logits(model, params, prompt, "auto")
+    pln, _, rp, pln_first = engine_logits(model, params, prompt, "ref", tok)  # same token
     check(bool(torch.isfinite(ker).all()), "kernel-path logits are not finite")
     rel = ((ker - pln).abs().max() / pln.abs().max()).item()
     tol = MOE_LOGITS_REL_TOL if cfg.is_moe else LOGITS_REL_TOL
@@ -916,7 +957,6 @@ def logits_agree(model, params, cfg) -> None:
           f"{tuple(ker.shape)}, max abs err / max |logit| = {rel:.3e} (tol {tol}), "
           f"argmax {int(ker.argmax())} vs {int(pln.argmax())}")
     if cfg.is_moe:
-        rk, rp = routes
         check(len(rk) == len(rp) == 2 * cfg.num_layers, f"{len(rk)} MoE calls recorded")
         same = sum(int((a[:, :, None] == b[:, None, :]).any(-1).sum()) for a, b in zip(rk, rp))
         total = sum(a.numel() for a in rk)
@@ -927,6 +967,8 @@ def logits_agree(model, params, cfg) -> None:
               f"{first} of {len(rk)} (prefill layers, then the decode step's)")
         check(share <= MOE_ROUTING_TOL, f"routing differs in {share:.4f} of the choices")
     check(rel <= tol, f"full-width logits disagree: {rel}")
+    return {"prompt": prompt, "tok": tok, "kernel": ker, "plain": pln,
+            "kernel_first": ker_first, "plain_first": pln_first}
 
 
 def main_path(fp_ops, pa_ops, cfg):
@@ -1012,16 +1054,20 @@ def main_path(fp_ops, pa_ops, cfg):
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
     for toks in rt.tokens.values():
         check(all(0 <= t < cfg.vocab_size for t in toks), "token id out of range")
-    profile_engine(rt.relaxed_pool[0].engine, cfg)
+    n = profile_engine(rt.relaxed_pool[0].engine, cfg)
+    # a dense model's decode rows never meet, so the trash rule of MoE
+    # engines (ServingEngine._trash_sources) adds nothing to this count
+    print(f"phase 1 {cfg.name} decode step (B=8, context ~512): {n:.0f} kernels a step")
     return launches, model, params, rt.kernel_donor, rt.pm
 
 
-def profile_engine(eng, cfg) -> None:
+def profile_engine(eng, cfg) -> float:
     """Where the time goes on one engine at the runtime's shapes: a 512-token
     prefill, then decode steps of a full bucket (8 requests, context ~512).
     Host wall time per call is taken without the profiler; a second pass
     under torch.profiler gives the device's busy time (the sum of its kernel
-    times) and the kernels that take most of it."""
+    times) and the kernels that take most of it. Returns the kernels a
+    decode step launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.request import Kind, Request
@@ -1058,19 +1104,41 @@ def profile_engine(eng, cfg) -> None:
         for _ in range(4):
             eng.decode_step(rids)
         torch.cuda.synchronize()
+    if cfg.is_moe:
+        # the same step with every row writing its own K/V, as a dense
+        # engine's rows do: what the trash rule adds
+        rule = type(eng)._trash_sources
+        type(eng)._trash_sources = lambda self, page_ids, offs: None
+        try:
+            with profile(activities=acts) as prof_r:
+                eng.decode_step(rids)
+                torch.cuda.synchronize()
+        finally:
+            type(eng)._trash_sources = rule
     for r in rids:
         eng.release(r)
     report_profile("prefill of 512 tokens", prof_p, t_prefill, 1)
     report_profile("decode step, B=8, context ~512", prof_d, t_decode, 4)
+    n = sum(e.count for e in device_events(prof_d)) / 4
+    if cfg.is_moe:
+        n_own = sum(e.count for e in device_events(prof_r))
+        print(f"decode step without the trash rule: {n_own} kernels; the rule adds "
+              f"{n - n_own:.0f} a step")
+    return n
+
+
+def device_events(prof) -> list:
+    """The kernels of a torch.profiler run, by name."""
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and "CUDA" in str(e.device_type)]
 
 
 def report_profile(what, prof, wall, n) -> float:
     """Device busy time per call from a torch.profiler run over ``n`` calls
     (the sum of its kernel times), beside the host wall time per call, and
     the kernels that take most of it. Returns the busy ms per call."""
-    ev = [e for e in prof.key_averages()
-          if getattr(e, "device_type", None) is not None
-          and "CUDA" in str(e.device_type)]
+    ev = device_events(prof)
     busy = {e.key: getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
             for e in ev}
@@ -1281,10 +1349,14 @@ def engine_checks(model, params, cfg) -> None:
 # phase 2: the default configuration
 # ---------------------------------------------------------------------------
 
-def default_path(fp_ops, pa_ops, cfg, model, params, donor, pm) -> dict:
+def default_path(fp_ops, pa_ops, cfg, model, params, donor=None, pm=None,
+                 label="phase 2") -> dict:
     """Phase 2: the reference's default serving configuration (chunked
     prefill and horizons ``auto``, prefix cache on) over the first phase's
-    weights, on a backlog with shared prefixes."""
+    weights, on a backlog with shared prefixes. Phase 3b runs it for its
+    first arch, without a donor engine or a memo to carry over: the bs_sat
+    memo is then filled after the warm-up, as a server does at start-up.
+    Returns the kernel launches of the run, its summary and the memo's s."""
     import torch
     from repro_torch.cluster.runtime import PoolRuntime, WallClock
     from repro_torch.core.hardware import H100_SXM
@@ -1300,10 +1372,15 @@ def default_path(fp_ops, pa_ops, cfg, model, params, donor, pm) -> dict:
                      kernels_from=donor)
     del donor    # the last engine of phase 1: its pools go now
     torch.cuda.empty_cache()
-    # same model and hardware model as phase 1: its bs_sat memo carries over
-    rt.pm._bs_sat_cache = pm._bs_sat_cache
-    print(f"phase 2 runtime built; torch.cuda.memory_allocated "
-          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    if pm is not None:
+        # same model and hardware model as phase 1: its bs_sat memo carries over
+        rt.pm._bs_sat_cache = pm._bs_sat_cache
+    pool = rt.strict_pool[0].engine.cache
+    pool_bytes = 2 * pool.k_pool.numel() * pool.k_pool.element_size()
+    print(f"{label} runtime built; KV pools per engine: {pool.num_pages} pages x "
+          f"{pool.page_size} tokens, {pool_bytes / 1e9:.3f} GB, "
+          f"{pool_bytes // (pool.num_pages * pool.page_size)} B a token; "
+          f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     # warm-up outside the measured run (cuBLAS shapes of the chunk buckets,
     # mixed steps and horizons), then the engines start clean: no stats,
     # nothing in the prefix trees
@@ -1325,6 +1402,14 @@ def default_path(fp_ops, pa_ops, cfg, model, params, donor, pm) -> dict:
             eng.release(r)
         eng.cache.prefix.release_all()
         eng.stats = EngineStats()
+    memo_s = None
+    if pm is None:
+        # the scheduler's bs_sat memo, filled once at start-up (see main_path)
+        t0 = time.perf_counter()
+        for b in range(1, 12):
+            rt.pm.compute_saturated_batch(1 << b)
+        memo_s = time.perf_counter() - t0
+        print(f"{label} bs_sat memo for contexts up to 2048 filled in {memo_s:.1f} s")
     torch.cuda.synchronize()
 
     online = tr.online_trace("ooc", duration=6.0, mean_qps=1.0, seed=0)
@@ -1340,32 +1425,32 @@ def default_path(fp_ops, pa_ops, cfg, model, params, donor, pm) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(fp_ops, pa_ops)
-    print("phase 2 summary " + json.dumps(summary, sort_keys=True))
+    print(f"{label} summary " + json.dumps(summary, sort_keys=True))
     n_req = summary["online_requests"] + summary["offline_requests"]
     n_fin = summary["online_finished"] + summary["offline_finished"]
-    print(f"phase 2 requests finished: {n_fin}/{n_req} in {wall:.2f} s wall")
-    print(f"phase 2 online TTFT p50 {summary['online_ttft_p50']} s, p99 "
+    print(f"{label} requests finished: {n_fin}/{n_req} in {wall:.2f} s wall")
+    print(f"{label} online TTFT p50 {summary['online_ttft_p50']} s, p99 "
           f"{summary['online_ttft_p99']} s; TPOT p50 {summary['online_tpot_p50']} s, "
           f"p99 {summary['online_tpot_p99']} s; attainment "
           f"{summary['online_slo_attainment']}; offline "
           f"{summary['offline_tokens_per_s']:.2f} tokens/s")
-    print(f"phase 2 dispatches {summary['dispatches_by_kind']}; horizon rounds "
+    print(f"{label} dispatches {summary['dispatches_by_kind']}; horizon rounds "
           f"{summary['horizon_rounds']}, mixed-horizon rounds "
           f"{summary['mixed_horizon_rounds']}, horizon steps {summary['horizon_steps']}; "
           f"chunks {summary['chunks']}, chunk preemptions {summary['chunk_preemptions']}; "
           f"prefix hits {summary['prefix_hits']}, cached tokens "
           f"{summary['cached_tokens']}; migrations {summary['migrations']}, pulls "
           f"{summary['pulls']}")
-    print(f"phase 2 kernel launches: {launches}")
-    check(n_req > 0 and n_fin == n_req, f"phase 2: only {n_fin}/{n_req} requests finished")
-    check(summary["dispatches_by_kind"]["mixed"] > 0, "phase 2 ran no mixed step")
-    check(summary["prefix_hits"] > 0, "phase 2 claimed no cached prefix")
+    print(f"{label} kernel launches: {launches}")
+    check(n_req > 0 and n_fin == n_req, f"{label}: only {n_fin}/{n_req} requests finished")
+    check(summary["dispatches_by_kind"]["mixed"] > 0, f"{label} ran no mixed step")
+    check(summary["prefix_hits"] > 0, f"{label} claimed no cached prefix")
     for name in ("flash_prefill_chunk", "flash_prefill_at_offset", "paged_attention"):
-        check(launches[name] > 0, f"phase 2: {name} never launched")
+        check(launches[name] > 0, f"{label}: {name} never launched")
     for toks in rt.tokens.values():
         check(all(0 <= t < cfg.vocab_size for t in toks), "token id out of range")
     profile_fused(rt.relaxed_pool[0].engine, cfg)
-    return launches
+    return launches, summary, memo_s
 
 
 def profile_fused(eng, cfg) -> None:
@@ -1481,6 +1566,94 @@ def moe_engine_checks(model, params, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+#: the repeated horizon of phase 3: (prompt length, decode budget) of 6
+#: rows in a bucket of 8. Past their budgets rows 0 and 4 sit at positions
+#: 48 and 304 and row 2 at 177, so from the second step on rows 0 and 4
+#: write slot 0 of the trash page, where the two padding rows write too, and
+#: read it back (their tables hold page 0 past their claimed pages); row 0
+#: routes first, so under capacity its hidden state can take a later live
+#: row's expert slot.
+REPEAT_ROWS = [(47, 1), (100, 64), (175, 2), (256, 64), (303, 1), (333, 64)]
+REPEATS = 3
+
+
+def horizon_repeats(model, params, cfg) -> dict:
+    """ROADMAP queue 3's trash page: one K=4 decode horizon over
+    ``REPEAT_ROWS`` runs REPEATS times from one state (engines of their own,
+    the same prompts prefilled, then every pool set to the first engine's,
+    the trash page zeroed). First without the trash rule (every row writes
+    its own K/V, as a dense engine's rows do): the device keeps an
+    unspecified one of the colliding writes, so what the masked rows read
+    back may differ between repeats; printed, not gated. Then as the MoE
+    engine runs (``ServingEngine._trash_sources``: the rows that share a
+    slot write the last one's K/V): the token blocks and the pools must come
+    out identical."""
+    import torch
+    from repro_torch.core.request import Kind, Request
+    from repro_torch.engine import engine as engine_mod
+
+    g = torch.Generator().manual_seed(31)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n, _ in REPEAT_ROWS]
+    start = {}
+
+    def repeat():
+        eng = engine_mod.ServingEngine(model, params, num_pages=256, decode_buckets=(8,),
+                                       device=DEVICE)
+        rids = []
+        for p, (_, budget) in zip(prompts, REPEAT_ROWS):
+            r = Request(Kind.OFFLINE, 0.0, len(p), budget + 1)   # prefill emits one
+            eng.add_request(r, p)
+            eng.prefill(r.rid)
+            rids.append(r.rid)
+        if not start:
+            eng.cache.k_pool[:, 0] = 0
+            eng.cache.v_pool[:, 0] = 0
+            start.update(k=eng.cache.k_pool.clone(), v=eng.cache.v_pool.clone(),
+                         tables={i: list(eng.cache.tables[r]) for i, r in enumerate(rids)})
+        check({i: list(eng.cache.tables[r]) for i, r in enumerate(rids)} == start["tables"],
+              "the repeated horizon's engines hold other block tables")
+        eng.cache.k_pool.copy_(start["k"])
+        eng.cache.v_pool.copy_(start["v"])
+        out = eng.decode_horizon(rids, 4)
+        return [out[r] for r in rids], eng.cache.k_pool, eng.cache.v_pool
+
+    res = {}
+    rule = engine_mod.trash_sources
+    for mode in ("without the rule", "with the rule"):
+        if mode == "without the rule":
+            engine_mod.trash_sources = lambda page_ids, offs, page_size: torch.arange(
+                page_ids.shape[0], device=page_ids.device)
+        try:
+            blocks, k0, v0 = repeat()
+            same = trash = live = True
+            for _ in range(REPEATS - 1):
+                b, k, v = repeat()
+                same &= b == blocks
+                trash &= torch.equal(k[:, 0], k0[:, 0]) and torch.equal(v[:, 0], v0[:, 0])
+                live &= torch.equal(k[:, 1:], k0[:, 1:]) and torch.equal(v[:, 1:], v0[:, 1:])
+                del k, v
+        finally:
+            engine_mod.trash_sources = rule
+        print(f"trash page, {mode}: one K=4 decode horizon (6 rows in bucket 8, budgets "
+              f"{[b for _, b in REPEAT_ROWS]}) run {REPEATS} times from one state: token "
+              f"blocks {'identical' if same else 'DIFFER'} {blocks}; trash page "
+              f"{'identical' if trash else 'differs'}, live pages "
+              f"{'identical' if live else 'differ'} after it")
+        check(all(len(t) == min(4, b) for t, (_, b) in zip(blocks, REPEAT_ROWS)),
+              "a row of the repeated horizon emitted another count of tokens")
+        res[mode] = {"tokens_identical": same, "trash_identical": trash,
+                     "live_identical": live}
+        del k0, v0
+    start.clear()
+    torch.cuda.empty_cache()
+    ok = res["with the rule"]
+    check(ok["tokens_identical"], "the repeated decode horizon's token blocks differ")
+    check(ok["trash_identical"] and ok["live_identical"],
+          "the repeated decode horizon left other pools")
+    return res
+
+
 async def http_generate(host, port, spec, *, cancel_after_rid=False):
     """One streamed ``POST /v1/generate`` as a client sees it: the rid, the
     tokens, every ``done`` line, and the client's TTFT (request sent to first
@@ -1564,6 +1737,7 @@ def gateway_path(fp_ops, pa_ops, cfg) -> dict:
           f"sheet's memory rate")
     logits_agree(model, params, cfg)
     moe_engine_checks(model, params, cfg)
+    horizon_repeats(model, params, cfg)
 
     rt = PoolRuntime(cfg, policy="ooco", n_strict=1, n_relaxed=1, clock=WallClock(),
                      hw=H100_SXM, decode_buckets=(8,), chunk_tokens="auto",
@@ -1702,8 +1876,134 @@ def gateway_path(fp_ops, pa_ops, cfg) -> dict:
           f"offline {summary['offline_tokens_per_s']:.2f} tokens/s; dispatches "
           f"{summary['dispatches_by_kind']}; horizon rounds {summary['horizon_rounds']}; "
           f"prefix hits {summary['prefix_hits']}; migrations {summary['migrations']}")
-    profile_engine(rt.relaxed_pool[0].engine, cfg)
+    n = profile_engine(rt.relaxed_pool[0].engine, cfg)
+    print(f"phase 3 {cfg.name} decode step (B=8, context ~512): {n:.0f} kernels a step "
+          f"(the trash rule's included)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: every arch the engine serves that one card holds (engine_archs)
+# ---------------------------------------------------------------------------
+
+#: the full-attention archs of the zoo that the engine serves and one card
+#: holds, beside phases 1-3's qwen2.5-7b and granite, with their heads: MHA
+#: at hd 96, G = 8 at hd 64, qk_norm at hd 128. The first is also served in
+#: the default configuration through ``PoolRuntime``.
+ENGINE_ARCHS = {"phi-3-vision-4.2b": PHI3V_HEADS, "tinyllama-1.1b": TINYLLAMA_HEADS,
+                "qwen3-8b": QWEN3_HEADS}
+ENGINE_ARCH_RUNTIME = "phi-3-vision-4.2b"
+#: the engine witness's planted fault: every decode row's last keys dropped
+#: from what the paged kernel is handed (it still launches)
+ENGINE_WITNESS_DROP = 64
+
+
+def engine_witness(model, params, cfg, agree) -> dict:
+    """The bf16 rounding floor of this depth, and the depth-scaled gate of
+    phase 3b (``witness``'s rule on the engine): an f32 plain-version engine
+    over the same bf16 weights (cast to f32) takes ``logits_agree``'s prompt
+    and token. For the prefill's first-token logits and the decode step's,
+    the bf16 plain engine's distance to it (max abs / max |logit|) is the
+    floor, printed beside the kernels-vs-plain distance that
+    ``logits_agree`` holds to LOGITS_REL_TOL. The bf16 kernel engine's
+    decode-step distance to the f32 logits may be at most WITNESS_RATIO_TOL
+    times the floor. Then the kernel engine again with ENGINE_WITNESS_DROP
+    keys dropped from every row's length in each paged launch: its ratio
+    must exceed the limit."""
+    import dataclasses
+    from repro_torch.engine import engine as engine_mod
+    from repro_torch.models.model import build_model
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    want, _, _, want_first = engine_logits(build_model(c32), p32, agree["prompt"], "ref",
+                                           agree["tok"])
+    del p32
+    out = {}
+    for step, (ker, pln, ref) in {
+            "first_token": (agree["kernel_first"], agree["plain_first"], want_first),
+            "decode_step": (agree["kernel"], agree["plain"], want)}.items():
+        out[step] = {"kernels_vs_plain": rel_err(ker, pln), "plain_vs_f32": rel_err(pln, ref),
+                     "kernels_vs_f32": rel_err(ker, ref)}
+        r = out[step]
+        print(f"bf16 floor of {cfg.name} at {cfg.num_layers} layers, full width, "
+              f"{len(agree['prompt'])}-token prompt, {step.replace('_', ' ')} logits (max abs "
+              f"err / max |logit|): kernels vs plain {r['kernels_vs_plain']:.3e} (limit "
+              f"{LOGITS_REL_TOL}), bf16 plain vs f32 plain {r['plain_vs_f32']:.3e}, bf16 "
+              f"kernels vs f32 plain {r['kernels_vs_f32']:.3e}")
+    d = out["decode_step"]
+    ratio = d["kernels_vs_f32"] / d["plain_vs_f32"]
+    print(f"engine witness {cfg.name}: decode-step ratio {ratio:.3f} (limit "
+          f"{WITNESS_RATIO_TOL})")
+    check(ratio <= WITNESS_RATIO_TOL, f"{cfg.name}: the kernel engine is {ratio:.2f}x as far "
+          f"from the f32 logits as the plain engine")
+    paged = engine_mod.paged_attention
+    engine_mod.paged_attention = lambda q, kp, vp, tables, lengths, **kw: paged(
+        q, kp, vp, tables, (lengths - ENGINE_WITNESS_DROP).clamp_min(1), **kw)
+    try:
+        bad = engine_logits(model, params, agree["prompt"], "auto", agree["tok"])[0]
+    finally:
+        engine_mod.paged_attention = paged
+    fault = rel_err(bad, want) / d["plain_vs_f32"]
+    print(f"engine witness {cfg.name}, planted fault 'last {ENGINE_WITNESS_DROP} keys "
+          f"dropped' in the paged kernel: ratio {fault:.3f}")
+    check(fault > WITNESS_RATIO_TOL, f"{cfg.name}: the engine witness passes its planted fault")
+    return {**out, "ratio": ratio, "fault_ratio": fault}
+
+
+def engine_arch_path(fp_ops, pa_ops, name) -> dict:
+    """Phase 3b for one arch, at full width and depth with seeded random bf16
+    weights, its weights and pools freed at the end: kernels vs plain logits
+    (``logits_agree``) and ``engine_checks`` (chunked vs whole, a mixed
+    step's decode rows vs ``decode_step``, K=4 horizons vs serial steps
+    under the margin rule, warm vs cold prefix, one host sync a dispatch),
+    with the launch counts set to 0 before and read after; then
+    ``engine_witness``; for ``ENGINE_ARCH_RUNTIME`` then the default configuration through
+    ``PoolRuntime`` (``default_path``). Both kernels must launch, flash at
+    q_offset > 0 too."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    kv_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    print(f"engine_archs {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim} (G = "
+          f"{cfg.num_heads // cfg.num_kv_heads}), qk_norm {cfg.qk_norm}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params ({n_params * 2 / 1e9:.2f} "
+          f"GB bf16), KV {kv_token} B a token; seeded in {time.perf_counter() - t0:.1f} s")
+    check((cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == ENGINE_ARCHS[name],
+          f"{name}: heads differ from ENGINE_ARCHS")
+    reset_launches(fp_ops, pa_ops)
+    agree = logits_agree(model, params, cfg)
+    engine_checks(model, params, cfg)
+    torch.cuda.synchronize()
+    checks = read_launches(fp_ops, pa_ops)
+    print(f"engine_archs {name} kernel launches of the engine checks: {checks}; paged at hd "
+          f"{cfg.head_dim} with G = {cfg.num_heads // cfg.num_kv_heads}, flash at hd "
+          f"{cfg.head_dim}")
+    for kind in ("flash_prefill_whole_prompt", "flash_prefill_at_offset", "paged_attention"):
+        check(checks[kind] > 0, f"engine_archs {name}: {kind} never launched")
+    wit = engine_witness(model, params, cfg, agree)
+    del agree
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime, summary, memo_s = {}, None, None
+    if name == ENGINE_ARCH_RUNTIME:
+        runtime, summary, memo_s = default_path(fp_ops, pa_ops, cfg, model, params,
+                                                label=f"engine_archs {name}")
+    del model, params
+    gc.collect()    # the runtime's engines hold their pools through cycles
+    torch.cuda.empty_cache()
+    launches = {k: checks[k] + runtime.get(k, 0)
+                for k in ("paged_attention", "flash_prefill_chunk", "flash_prefill_at_offset")}
+    return {"launches": launches, "summary": summary, "memo_s": memo_s, "witness": wit,
+            "phase_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -2990,6 +3290,12 @@ def run(train_data) -> int:
     flash_err, chunk_err = check_flash(fp_ops, fp_ref)
     g_paged_err = check_paged(pa_ops, pa_ref, heads=GRANITE_HEADS)
     g_flash_err, g_chunk_err = check_flash_heads(fp_ops, fp_ref, GRANITE_HEADS)
+    # phase 3b's heads: paged decode (hd 96 with G = 1, G = 8 at hd 64, hd
+    # 128 with G = 4) and the chunk side of a mixed step
+    arch_paged_err = {name: check_paged(pa_ops, pa_ref, heads=heads)
+                      for name, heads in ENGINE_ARCHS.items()}
+    arch_chunk_err = {name: check_flash_chunks(fp_ops, fp_ref, heads)
+                      for name, heads in ENGINE_ARCHS.items()}
     wide_err = check_flash_wide(fp_ops, fp_ref)
     fam_check = check_flash_families(fp_ops, fp_ref)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
@@ -3000,6 +3306,10 @@ def run(train_data) -> int:
     g_paged_t = time_paged(pa_ops, pa_ref, flush, heads=GRANITE_HEADS)
     g_flash_t = time_flash(fp_ops, fp_ref, flush, 512, heads=GRANITE_HEADS)
     g_chunk_t = time_flash_chunk(fp_ops, fp_ref, flush, heads=GRANITE_HEADS)
+    arch_paged_t = {name: time_paged(pa_ops, pa_ref, flush, heads=heads)
+                    for name, heads in ENGINE_ARCHS.items()}
+    arch_chunk_t = {name: time_flash_chunk(fp_ops, fp_ref, flush, heads=heads)
+                    for name, heads in ENGINE_ARCHS.items()}
     wide_t = {name: time_flash_wide(fp_ops, fp_ref, flush, name) for name in WIDE_SHAPES}
     fam_t = {row: time_flash_family(fp_ops, fp_ref, flush, row) for row in FAMILY_SHAPES}
     del flush
@@ -3009,7 +3319,7 @@ def run(train_data) -> int:
     cfg = get_config("qwen2.5-7b")
     colocated, model, params, donor, pm = main_path(fp_ops, pa_ops, cfg)
     engine_checks(model, params, cfg)
-    default = default_path(fp_ops, pa_ops, cfg, model, params, donor, pm)
+    default, _, _ = default_path(fp_ops, pa_ops, cfg, model, params, donor, pm)
     # phase 2's pools and qwen's weights go before the MoE model is seeded
     del donor, model, params, pm
     torch.cuda.empty_cache()
@@ -3019,6 +3329,16 @@ def run(train_data) -> int:
     torch.cuda.empty_cache()
     print(f"after phase 3: torch.cuda.memory_allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    # phase 3b: the other archs the engine serves, one after the other
+    t0 = time.perf_counter()
+    archs = {name: engine_arch_path(fp_ops, pa_ops, name) for name in ENGINE_ARCHS}
+    for name, r in archs.items():
+        print(f"engine_archs summary {name}: " + json.dumps({
+            "launches": r["launches"], "phase_s": r["phase_s"],
+            "bs_sat_memo_s": r["memo_s"], "witness": r["witness"], "summary": r["summary"]},
+            sort_keys=True))
+    print(f"engine_archs phase took {time.perf_counter() - t0:.1f} s; after it "
+          f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     api = {name: model_api_path(fp_ops, pa_ops, name) for name in MODEL_API_RUNS}
     for name, r in api.items():
         w = r["witness"]
@@ -3119,6 +3439,23 @@ def run(train_data) -> int:
          "launches_at_q_offset": moe["flash_prefill_at_offset"],
          "max_abs_err": g_chunk_err, **g_chunk_t},
     ]
+    # phase 3b's heads: launches of each arch's run (engine checks, and the
+    # default configuration for ENGINE_ARCH_RUNTIME)
+    for name, (Hq, Hkv, hd) in ENGINE_ARCHS.items():
+        n = archs[name]["launches"]
+        kernels += [
+            {"name": f"paged_attention ({name})",
+             "shape": f"B=8 ctx=512 heads={Hq}/{Hkv} hd={hd}", **paged,
+             "launches": n["paged_attention"],
+             "launches_by_path": {"engine_archs": n["paged_attention"]},
+             "max_abs_err": arch_paged_err[name], **arch_paged_t[name]},
+            {"name": f"flash_prefill ({name} chunk)",
+             "shape": f"B=1 C=256 c=192 q_offset=320 Skv=512 kv_len=512 heads={Hq}/{Hkv} "
+                      f"hd={hd}",
+             "use": "chunk", **flash, "launches": n["flash_prefill_chunk"],
+             "launches_by_path": {"engine_archs": n["flash_prefill_chunk"]},
+             "launches_at_q_offset": n["flash_prefill_at_offset"],
+             "max_abs_err": arch_chunk_err[name], **arch_chunk_t[name]}]
     # the model_api phase's heads: gemma2-2b (hd 256, its local layers'
     # window and softcap) and phi-3-vision-4.2b (hd 96)
     for name, (heads, kv, window, cap) in WIDE_SHAPES.items():

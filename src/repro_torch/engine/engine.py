@@ -46,7 +46,7 @@ from repro_torch.core.perf_model import PerfModel
 from repro_torch.core.request import Phase, Request
 from repro_torch.core.scheduling import split_chunk
 from repro_torch.engine.kv_cache import (PagedKVCache, to_device, transfer_checksum,
-                                         verify_transfer)
+                                         trash_sources, verify_transfer)
 from repro_torch.kernels import require_device, resolve_backend
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -165,6 +165,7 @@ class _DecodeRows:
     lengths: torch.Tensor     # (B,) int32 keys each row attends over
     page_ids: torch.Tensor    # (B,) int64 page its K/V lands in (0: trash)
     offs: torch.Tensor        # (B,) int64 slot in that page
+    src: torch.Tensor | None  # (B,) int64 row whose K/V each row writes (MoE only)
 
 
 @dataclass
@@ -178,6 +179,7 @@ class _ChunkRows:
     q_offset: int             # prompt tokens landed before this chunk
     kv_lens: torch.Tensor     # (1,) int32 q_offset + n
     n: int                    # real rows
+    src: torch.Tensor | None  # (C,) int64 row whose K/V each row writes (MoE only)
 
 
 @dataclass
@@ -354,7 +356,7 @@ class ServingEngine:
         lp = self._layer_params(li)
         h = _norm(cfg, lp["ln1"], x)
         q, k_new, v_new = attention._project_qkv(lp["attn"], h, cfg, d.positions[:, None])
-        self.cache.write_layer(li, d.page_ids, d.offs, k_new[:, 0], v_new[:, 0])
+        self.cache.write_layer(li, d.page_ids, d.offs, k_new[:, 0], v_new[:, 0], d.src)
         a = self._attend(q[:, 0], li, d.tables, d.lengths)
         a = layers.dense(lp["attn"]["wo"], a.reshape(a.shape[0], 1, -1))
         return self._layer_tail(lp, x, a)
@@ -367,7 +369,7 @@ class ServingEngine:
         lp = self._layer_params(li)
         h = _norm(cfg, lp["ln1"], x)
         q, k, v = attention._project_qkv(lp["attn"], h, cfg, c.positions)
-        self.cache.write_layer(li, c.page_ids, c.offs, k[0], v[0])
+        self.cache.write_layer(li, c.page_ids, c.offs, k[0], v[0], c.src)
         k_ctx, v_ctx = self.cache.gather_pages(li, c.tables)
         a = attention.attn_chunk(lp["attn"], q, k_ctx, v_ctx, cfg,
                                  q_offset=c.q_offset, kv_lens=c.kv_lens,
@@ -515,7 +517,9 @@ class ServingEngine:
         through their table, whose last one they did not write, capped at
         the table's ``P * page_size`` slots (the reference's gather holds no
         more). Their output is discarded, but under MoE capacity a row's
-        hidden state decides which later rows keep their expert slots."""
+        hidden state decides which later rows keep their expert slots, so
+        there the rows that share a trash slot write one row's K/V
+        (``_trash_sources``)."""
         P, page = tables.shape[1], self.cache.page_size
         rows = torch.arange(tables.shape[0], device=self.device)
         # a masked row's position may sit one page past its claim
@@ -523,8 +527,19 @@ class ServingEngine:
         if active is not None:
             page_ids = torch.where(active, page_ids, 0)
             lengths = (positions + 1).clamp_max(P * page).int()
-        return _DecodeRows(tokens, positions, tables, lengths, page_ids,
-                           positions % page)
+        offs = positions % page
+        return _DecodeRows(tokens, positions, tables, lengths, page_ids, offs,
+                           self._trash_sources(page_ids, offs))
+
+    def _trash_sources(self, page_ids, offs):
+        """``kv_cache.trash_sources`` of one write where rows are coupled (an
+        MoE model: capacity makes a row's hidden state decide later rows'
+        expert slots, and a row that reads a trash slot back must read the
+        same K/V on every run); None for a dense model, whose rows never
+        meet, so its writes stay as they are."""
+        if not self.cfg.is_moe:
+            return None
+        return trash_sources(page_ids, offs, self.cache.page_size)
 
     def _decode_logits(self, tokens, positions, tables, lengths):
         """One decode iteration over the layer stack: per layer, the new
@@ -803,12 +818,17 @@ class ServingEngine:
             pages[i], offs[i] = self.cache.chunk_index(rid, start, s, C)
             lens[i] = start + s
             start += s
+        # each sub-chunk is one write, whose slots are known here on the host
+        srcs = [self._trash_sources(torch.from_numpy(p), torch.from_numpy(o))
+                for p, o in zip(pages, offs)]
+        if srcs[0] is not None:
+            srcs = to_device(torch.stack(srcs).numpy(), dev)
         toks, pos, pages, offs, lens, tables = (to_device(a, dev) for a in (
             toks, pos, pages, offs, lens, c_tables))
         out, start = [], state.done
         for i, s in enumerate(subs):
             out.append(_ChunkRows(toks[i], pos[i: i + 1], pages[i], offs[i], tables,
-                                  start, lens[i: i + 1], s))
+                                  start, lens[i: i + 1], s, srcs[i]))
             start += s
         return out
 

@@ -30,6 +30,21 @@ from repro_torch.kernels import require_device
 from repro_torch.models.config import ModelConfig
 
 
+def trash_sources(page_ids: torch.Tensor, offs: torch.Tensor, page_size: int) -> torch.Tensor:
+    """For the n rows of one indexed pool write, (n,) int64 on their device:
+    the row whose K/V each row writes. Rows that land on one slot of the
+    trash page 0 all write the last such row's K/V, so the slot holds the
+    same values whichever of the colliding writes the device applies last (a
+    CUDA indexed write keeps an unspecified one; the CPU's, and the
+    reference's, keep the last). Every other row writes its own. No host
+    sync."""
+    rows = torch.arange(page_ids.shape[0], device=page_ids.device)
+    trash = page_ids == 0
+    last = torch.full((page_size,), -1, dtype=rows.dtype, device=rows.device)
+    last = last.scatter_reduce(0, offs, torch.where(trash, rows, -1), "amax")
+    return torch.where(trash, last[offs], rows)
+
+
 def to_device(a, device) -> torch.Tensor:
     """Host array -> tensor on ``device`` without a stream sync: a copy from
     pageable host memory makes PyTorch wait for the stream, so the array goes
@@ -420,11 +435,14 @@ class PagedKVCache:
         self.k_pool[idx] = self.store(k)
         self.v_pool[idx] = self.store(v)
 
-    def write_layer(self, li: int, page_ids, offs, k, v) -> None:
+    def write_layer(self, li: int, page_ids, offs, k, v, src=None) -> None:
         """Write one layer's K/V rows in place: row i of k/v (n, Hkv, hd)
         lands at (page_ids[i], offs[i]) of layer ``li``. Rows that must not
         touch live state (bucket padding, masked horizon rows, padded chunk
-        rows) carry page 0, the reserved trash page."""
+        rows) carry page 0, the reserved trash page. With ``src``
+        (``trash_sources``) row i writes row src[i] of k/v instead."""
+        if src is not None:
+            k, v = k[src], v[src]
         self.k_pool[li, page_ids, offs] = self.store(k)
         self.v_pool[li, page_ids, offs] = self.store(v)
 

@@ -58,8 +58,16 @@ constexpr int kMaxParts = 12288; // partials per row the merge holds in shared m
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Built for HD 64, 96 and 128. Each needs HD / 16 k-steps of Q K^T, an even
+// number of 8-wide output tiles (V goes through ldmatrix.x4 two tiles at a
+// time), whole warps in the merge (one thread per dim), and a row stride of
+// an odd number of 16-byte units, so that the 8 rows of one ldmatrix fall in
+// 8 distinct bank groups (HD 96: 13 units, rows at units 0, 13, 26, ..., that
+// is groups 0, 5, 2, 7, 4, 1, 6, 3).
 template <int HD>
 struct Smem {
+  static_assert(HD % 32 == 0 && (HD / 8) % 2 == 0 && ((HD + 8) / 8) % 2 == 1,
+                "HD: a multiple of 32 whose padded row is an odd number of 16-byte units");
   static constexpr int kStr = HD + 8;  // row stride: a 16-byte shift per row, conflict-free ldmatrix
   static constexpr int stage = 2 * kTile * kStr;  // bf16 elements: K tile, then V tile
   static constexpr size_t ring = sizeof(__nv_bfloat16) * kWarps * kStages * stage;
@@ -380,6 +388,10 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pool, const voi
                        softcap, s);
   if (hd == 64)
     return launch<64>(q, k_pool, v_pool, tables, lengths, out, o_part, ml_part, B, Hkv, G, P,
+                      page_size, chunk, splits, page_stride, tok_stride, head_stride, scale,
+                      softcap, s);
+  if (hd == 96)
+    return launch<96>(q, k_pool, v_pool, tables, lengths, out, o_part, ml_part, B, Hkv, G, P,
                       page_size, chunk, splits, page_stride, tok_stride, head_stride, scale,
                       softcap, s);
   return (int)cudaErrorInvalidValue;

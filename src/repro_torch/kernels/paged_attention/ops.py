@@ -4,7 +4,9 @@ Model layout in: q (B, Hq, hd) for the single new token per request and one
 layer's pools (num_pages, page, Hkv, hd). On a CUDA tensor the wrapper
 launches the hand-written kernel (``csrc/paged_attention.cu``), which reads
 the pool directly through the block table; on a CPU tensor it runs the plain
-version (``ref.py``). There is no fallback from one to the other.
+version (``ref.py``). There is no fallback from one to the other: the kernel
+is built for head dims 64, 96 and 128 (``HEAD_DIMS``) and up to 8 query
+heads per KV head (``MAX_GROUP``), and a CUDA call at any other shape raises.
 
 The kernel splits each request's context into chunks of ``chunk`` token
 slots, one thread block per (request, KV head, chunk) whose four warps each
@@ -33,7 +35,7 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _P,                       # q, k, v, tables, le
              ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # pool strides
              ctypes.c_float, ctypes.c_float, _P]           # scale, softcap, stream
 MAX_GROUP = 8          # query heads per KV head the kernel holds (kMaxG)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)  # the kernel's instantiations, launch<HD>
 TILE = 64              # a chunk is a multiple: a 16-token tile per warp (4 x kTile)
 WARPS = 4              # warps per block, each with its own partial (kWarps)
 MAX_CHUNK = 1024       # token slots per chunk whose page ids fit in shared memory

@@ -7,7 +7,8 @@ machine that has only PyTorch and a card:
 
 (``--noconftest`` skips tests/conftest.py, which imports JAX.) Without a
 card the ``cuda``-marked tests skip. Tolerance 2e-2, and 1e-2 + 2^-7 |ref|
-at head dims 96, 112 and 256 and on the non-causal shapes: both sides
+at head dims 96, 112 and 256, on the non-causal shapes and at the heads of
+the engine's other archs (phi-3-vision, tinyllama, qwen3): both sides
 compute in f32 from the same bf16 inputs, and the output's one bf16
 rounding can land on either side.
 
@@ -283,6 +284,91 @@ def test_cuda_flash_kernel_at_hd_112_and_not_causal(heads, B, Sq, Skv, off, kv, 
     assert fp_ops.flash_attention.launches == n + 1
     if not causal:
         _assert_cap_visible(want, plain(True), 1e-2, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(32, 32, 96), (32, 4, 64), (32, 8, 128)],
+                         ids=["phi-3-vision-hd96-G1", "tinyllama-G8", "qwen3-8b"])
+def test_cuda_paged_kernel_at_engine_arch_heads(heads):
+    """Paged decode at the heads of the other archs the engine serves:
+    phi-3-vision-4.2b's MHA at hd 96 (G = 1: row 0 of the mma),
+    tinyllama-1.1b's G = 8 (rows 0-7, the kernel's largest group) and
+    qwen3-8b's 32/8 at hd 128. The main path's plans (bucket 8, tables of 32
+    and 64 pages), ragged lengths with a padded row, lengths on the planner's
+    chunk boundaries, softcap 0 and 50; within 1e-2 + 2^-7 |ref|, one launch
+    counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev, (Hq, Hkv, hd), page = "cuda", heads, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, _ = pa_ops.plan_splits(8, Hkv, 128, page, sms)
+    for P, lens in ((32, [512, 300, 497, 64, 65, 1, 511, 129]),
+                    (64, [540, 512, 129, 1000, 128, 1, 257, 33]),
+                    (128, [chunk - 1, chunk, chunk + 1, 2 * chunk, 7, 1, 2048, 5])):
+        q, kp, vp, tables, lengths = _paged_inputs(8, Hq, Hkv, hd, page, P, 600, 5, seed=P)
+        lengths[:] = lens
+        q, kp, vp = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, kp, vp))
+        tables, lengths = torch.from_numpy(tables).to(dev), torch.from_numpy(lengths).to(dev)
+        for cap in (0.0, 50.0):
+            qc = (q.float() * CAP_Q_SCALE).bfloat16() if cap else q
+            n = pa_ops.paged_attention.launches
+            got = pa_ops.paged_attention(qc, kp, vp, tables, lengths, num_kv_heads=Hkv,
+                                         logit_softcap=cap)
+            plain = lambda c: paged_attention_ref(  # noqa: E731
+                qc.reshape(8, Hkv, Hq // Hkv, hd), kp, vp, tables, lengths,
+                logit_softcap=c).reshape(q.shape)
+            want = plain(cap)
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2.0 ** -7)
+            assert pa_ops.paged_attention.launches == n + 1
+            if cap:
+                _assert_cap_visible(want, plain(0.0), 1e-2, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(32, 32, 96), (32, 4, 64)],
+                         ids=["phi-3-vision-hd96", "tinyllama-G8"])
+def test_cuda_flash_chunk_at_engine_arch_heads(heads):
+    """The chunk side of a mixed step at phi-3-vision-4.2b's hd 96 and at
+    tinyllama-1.1b's G = 8: C query rows (c real) at q_offset > 0 over one
+    request's K/V gathered from a paged pool (padded with the trash page 0),
+    kv_lens = q_offset + c; within 1e-2 + 2^-7 |ref|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev, (Hq, Hkv, hd), page = "cuda", heads, 16
+    g = torch.Generator(dev).manual_seed(hd)
+    for Sq, c, cp, off in ((16, 13, 8, 96), (256, 192, 32, 320), (512, 300, 64, 200)):
+        npages = 2 * cp + 1
+        kp = torch.randn(npages, page, Hkv, hd, generator=g, device=dev).bfloat16()
+        vp = torch.randn(npages, page, Hkv, hd, generator=g, device=dev).bfloat16()
+        used = -(-(off + c) // page)
+        table = torch.zeros(cp, dtype=torch.long, device=dev)
+        table[:used] = torch.randperm(npages - 1, generator=g, device=dev)[:used] + 1
+        k = kp[table].reshape(1, cp * page, Hkv, hd)
+        v = vp[table].reshape(1, cp * page, Hkv, hd)
+        q = torch.randn(1, Sq, Hq, hd, generator=g, device=dev).bfloat16()
+        lens = torch.tensor([off + c], dtype=torch.int32, device=dev)
+        n = fp_ops.flash_attention.launches
+        got = fp_ops.flash_attention(q, k, v, kv_lens=lens, q_offset=off)
+        want = flash_prefill_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 kv_len=cp * page, q_offset=off, kv_lens=lens).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2.0 ** -7)
+        assert fp_ops.flash_attention.launches == n + 1
+
+
+def test_paged_wrapper_refuses_other_head_dims_and_groups():
+    """The paged kernel is built for hd 64, 96 and 128 and up to 8 query
+    heads per KV head: any other shape raises before a launch (the check
+    runs on the CPU too)."""
+    kp = torch.zeros(4, 16, 1, 80, dtype=torch.bfloat16)
+    tables = torch.zeros(1, 2, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa_ops._check(torch.zeros(1, 2, 80, dtype=torch.bfloat16), kp, kp, tables, lens, 1)
+    kp = torch.zeros(4, 16, 1, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        pa_ops._check(torch.zeros(1, 9, 96, dtype=torch.bfloat16), kp, kp, tables, lens, 1)
+    pa_ops._check(torch.zeros(1, 8, 96, dtype=torch.bfloat16), kp, kp, tables, lens, 1)
+    assert pa_ops.HEAD_DIMS == (64, 96, 128) and pa_ops.MAX_GROUP == 8
 
 
 def test_flash_wrapper_refuses_other_head_dims():

@@ -12,7 +12,9 @@ granite-moe-3b-a800m (E 4, top-2, hd 64) with the JAX weights carried across:
   backend) through whole-prompt prefill, decode steps over a padded bucket,
   mixed steps with a chunk, and a K=4 decode horizon in which the first row
   runs out of budget (its hidden state then decides later rows' expert
-  slots), at both capacity factors;
+  slots), at both capacity factors; the decode and chunk rows that share a
+  slot of the trash page write one row's K/V (a dense engine's rows do not
+  meet, and its writes carry no sources);
 * a virtual-clock ``PoolRuntime`` replay of the default configuration whose
   ``summary()`` and ``finished_signature()`` equal the reference's.
 
@@ -40,6 +42,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.request import Kind, Request
 from repro_torch.data import traces as tr
 from repro_torch.engine.engine import ServingEngine
+from repro_torch.engine.kv_cache import trash_sources
 from repro_torch.interop import params_from_jax
 from repro_torch.models import moe
 from repro_torch.models.model import build_model
@@ -220,6 +223,87 @@ def test_masked_row_attends_as_the_reference(weights):
     d = eng._decode_rows(torch.zeros(2, dtype=torch.long), torch.tensor([16, 3]),
                          tables, None, torch.tensor([False, True]))
     assert d.lengths.tolist() == [16, 4] and d.page_ids.tolist() == [0, 4]
+
+
+def _trash_rule(page_ids, offs) -> list[int]:
+    """``trash_sources``' rule, row by row: a trash-page row writes the last
+    trash-page row's K/V at its slot, every other row its own."""
+    p, o = page_ids.tolist(), offs.tolist()
+    return [max(j for j in range(len(p)) if p[j] == 0 and o[j] == o[i]) if p[i] == 0 else i
+            for i in range(len(p))]
+
+
+def test_trash_sources_fix_the_slot_whatever_the_write_order():
+    """Rows that land on one slot of the trash page in one indexed write all
+    write the last such row's K/V, so the slot holds the same values in
+    whichever order a device applies the colliding writes; other rows write
+    their own."""
+    page_ids = torch.tensor([0, 5, 0, 0, 3, 0])
+    offs = torch.tensor([0, 1, 0, 2, 1, 0])
+    src = trash_sources(page_ids, offs, 8)
+    assert src.tolist() == _trash_rule(page_ids, offs) == [5, 1, 5, 3, 4, 5]
+    k = torch.randn(6, 2, 4)
+    pools = []
+    for order in (range(6), reversed(range(6)), [2, 5, 0, 3, 1, 4]):
+        pool = torch.zeros(8, 8, 2, 4)
+        for i in order:
+            pool[page_ids[i], offs[i]] = k[src[i]]
+        pools.append(pool)
+    assert all(torch.equal(pools[0], p) for p in pools[1:])
+    assert torch.equal(pools[0][0, 0], k[5]) and torch.equal(pools[0][0, 2], k[3])
+    assert torch.equal(pools[0][5, 1], k[1]) and torch.equal(pools[0][3, 1], k[4])
+
+
+def _engine_rows(eng, side):
+    """One write's rows of ``eng``: ``decode``, a K=4 horizon step with row 0
+    masked at position 8 (trash slot 0) beside two padding rows (slot 0 as
+    well); ``chunk``, a 17-token chunk in a 32-row bucket, whose 15 padding
+    rows share 8 trash slots."""
+    if side == "decode":
+        tables = torch.tensor([[3, 0], [4, 5], [0, 0], [0, 0]], dtype=torch.int32)
+        return eng._decode_rows(torch.zeros(4, dtype=torch.long), torch.tensor([8, 12, 0, 0]),
+                                tables, None, torch.tensor([False, True, False, False]))
+    r = Request(Kind.OFFLINE, 0.0, 40, 4)
+    eng.add_request(r, list(range(1, 41)))
+    state, c = eng._chunk_start(r.rid, 17)
+    eng.cache.ensure(r.rid, state.done + c)
+    (chunk,) = eng._chunk_rows(state, [c])
+    return chunk
+
+
+@pytest.mark.parametrize("side", ["decode", "chunk"])
+def test_moe_rows_sharing_a_trash_slot_write_one_rows_kv(weights, side):
+    """Under MoE capacity a row's hidden state decides later rows' expert
+    slots, and masked rows read the trash page back, so the MoE engine's
+    decode rows and chunk rows carry ``trash_sources``, and ``write_layer``
+    leaves each shared slot holding the last sharing row's K/V."""
+    tc = _cfgs()[1]
+    eng = ServingEngine(build_model(tc), weights[1], num_pages=8, page_size=8, device="cpu")
+    rows = _engine_rows(eng, side)
+    assert rows.src.tolist() == _trash_rule(rows.page_ids, rows.offs)
+    if side == "decode":
+        assert rows.page_ids.tolist() == [0, 5, 0, 0] and rows.src.tolist() == [3, 1, 3, 3]
+    else:
+        assert rows.src[:17].tolist() == list(range(17))
+        assert rows.src[17:].tolist() == list(range(25, 32)) + list(range(24, 32))
+    n = rows.page_ids.shape[0]
+    k = torch.randn(n, tc.num_kv_heads, tc.head_dim)
+    eng.cache.write_layer(0, rows.page_ids, rows.offs, k, -k, rows.src)
+    for i in range(n):
+        got = eng.cache.k_pool[0, rows.page_ids[i], rows.offs[i]]
+        assert torch.equal(got, k[rows.src[i]])
+        assert torch.equal(eng.cache.v_pool[0, rows.page_ids[i], rows.offs[i]], -got)
+
+
+@pytest.mark.parametrize("side", ["decode", "chunk"])
+def test_dense_rows_carry_no_trash_sources(side):
+    """A dense model's rows never meet, so its engine's writes stay as they
+    were: no sources, no extra gathers on the decode or the chunk side."""
+    cfg = dataclasses.replace(get_config("qwen2.5-7b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    eng = ServingEngine(model, model.init(torch.Generator().manual_seed(0)), num_pages=8,
+                        page_size=8, device="cpu")
+    assert _engine_rows(eng, side).src is None
 
 
 def test_masked_row_past_its_table_matches_jax(weights):

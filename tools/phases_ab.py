@@ -7,13 +7,15 @@
 
 Runs ``chip_smoke.py``'s phase 1 (``main_path``: full-width qwen2.5-7b in the
 co-located configuration, then one engine's prefill and decode step
-profiled) and gemma2-2b's phase 4 (``model_api_path``), each tree's own code,
+profiled), gemma2-2b's phase 4 (``model_api_path``) and one engine of
+full-width granite-moe-3b-a800m (``granite_steps``), each tree's own code,
 in a subprocess per run, in the order other, this, this, other, so that the
 two trees' spread can be read beside their difference. A tree whose
 ``chip_smoke.py`` starts phase 5's data worker in ``main`` gets it here as
 well, while phase 1 runs. Prints the lines that carry the readings: phase
 1's TTFT and TPOT p50, host wall and device busy per call, and ``AB`` lines
-with gemma2's prefill and ``decode_step`` times.
+with gemma2's prefill and ``decode_step`` times and granite's decode step
+and K=4 horizon.
 """
 from __future__ import annotations
 
@@ -27,6 +29,44 @@ import sys
 from pathlib import Path
 
 KEEP = ("AB ", "requests finished", "online TTFT p50", "host wall", "worker data")
+
+
+#: granite's readings: decode steps and K=4 horizons timed, over 8 rows
+GRANITE_STEPS, GRANITE_HORIZONS = 30, 10
+
+
+def granite_steps(cfg) -> dict:
+    """Mean host wall of GRANITE_STEPS decode steps and GRANITE_HORIZONS K=4
+    decode horizons (each ended by its one host sync) of one engine over 8
+    rows of 512-token prompts at full width, seeded random bf16 weights."""
+    import time
+    import torch
+    from repro_torch.core.request import Kind, Request
+    from repro_torch.engine.engine import ServingEngine
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    eng = ServingEngine(model, params, num_pages=1024, decode_buckets=(8,), device="cuda")
+    g = torch.Generator().manual_seed(11)
+    rids = []
+    for _ in range(8):
+        r = Request(Kind.OFFLINE, 0.0, 512, 2 + GRANITE_STEPS + 4 * GRANITE_HORIZONS)
+        eng.add_request(r, torch.randint(0, cfg.vocab_size, (512,), generator=g).tolist())
+        eng.prefill(r.rid)
+        rids.append(r.rid)
+    eng.decode_step(rids)
+    out = {}
+    for name, fn, n in (("decode_step_ms", lambda: eng.decode_step(rids), GRANITE_STEPS),
+                        ("horizon4_ms", lambda: eng.decode_horizon(rids, 4), GRANITE_HORIZONS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e3
+    del eng, params, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_tree(tree: str) -> None:
@@ -55,6 +95,9 @@ def run_tree(tree: str) -> None:
         api = cs.model_api_path(fp_ops, pa_ops, "gemma2-2b")
         print("AB", tree, json.dumps({k: api[k] for k in (
             "prefill_ms", "prefill_busy_ms", "decode_ms", "decode_busy_ms")}))
+        del api
+        torch.cuda.empty_cache()
+        print("AB granite", tree, json.dumps(granite_steps(get_config("granite-moe-3b-a800m"))))
         if pool:
             print("worker data seconds", data.result()[1])
     finally:
