@@ -26,8 +26,8 @@ from repro_torch.sharding import ctx
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _run(code: str, timeout: int = 300) -> dict:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def _run(code: str, timeout: int = 100) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=timeout, env=env, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]

@@ -17,9 +17,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _run(script: str, *args: str) -> list[str]:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, str(ROOT / "examples" / script), "--device", "cpu",
-                          *args], capture_output=True, text=True, timeout=300, env=env,
+                          *args], capture_output=True, text=True, timeout=100, env=env,
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     return out.stdout.splitlines()

@@ -595,7 +595,7 @@ def test_greedy_stream_matches_jax_gateway(built, quiet_sleep):
 def test_api_selftest_on_cpu_exits_clean():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.api", "--device", "cpu",
-                          "--selftest"], env=env, capture_output=True, text=True, timeout=300)
+                          "--selftest"], env=env, capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert "selftest: generate/disconnect/healthz OK" in out.stdout
     report = json.loads(out.stdout[out.stdout.index("{"):])

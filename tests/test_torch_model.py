@@ -176,5 +176,5 @@ def test_port_imports_neither_jax_nor_repro():
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr

@@ -3,8 +3,8 @@ JAX package's, on the CPU.
 
 Reduced granite-moe-3b-a800m (4 experts, top-2) in f32, x of (2, 12, d) from
 a numpy seed, the JAX weights carried across. The JAX side runs its
-``shard_map`` function in one subprocess over 4 forced host devices, on
-meshes (1, A) over the first A devices; the port runs ``moe_mlp_ep`` on a
+``shard_map`` function in one subprocess per mesh over 4 forced host devices,
+on meshes (1, A) over the first A devices; the port runs ``moe_mlp_ep`` on a
 gloo process group of world size A, one subprocess per rank, rank r taking
 token block r and experts [r E_loc, (r + 1) E_loc). A = 3 pads 4 experts to
 6. Capacity factor 8.0 drops nothing, 0.5 drops. Tolerance 2e-5 abs (f32 on
@@ -43,21 +43,20 @@ from repro.configs import get_config
 from repro.models.moe_ep import moe_mlp_ep, moe_ep_ref, pad_experts
 
 cfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(), dtype="float32")
-data = np.load(sys.argv[1])
+A, data = int(sys.argv[1]), np.load(sys.argv[2])
 p = {k: jnp.asarray(data["p_" + k]) for k in ("router", "gate", "up", "down")}
 x = data["x"]
 res = {}
 axis_type = getattr(jax.sharding, "AxisType", None)
-for A in (2, 3, 4):
-    kw = {"axis_types": (axis_type.Auto,) * 2} if axis_type is not None else {}
-    mesh = jax.make_mesh((1, A), ("data", "model"), devices=jax.devices()[:A], **kw)
-    pp, _ = pad_experts(p, cfg, A)
-    res[f"ref_{A}"] = np.asarray(moe_ep_ref(pp, jnp.asarray(x), cfg))
-    for cf in (8.0, 0.5):
-        with jax.sharding.use_mesh(mesh) if hasattr(jax.sharding, "use_mesh") else mesh:
-            out = moe_mlp_ep(pp, jnp.asarray(x), cfg, mesh, capacity_factor=cf)
-        res[f"ep_{A}_{cf}"] = np.asarray(out)
-np.savez(sys.argv[2], **res)
+kw = {"axis_types": (axis_type.Auto,) * 2} if axis_type is not None else {}
+mesh = jax.make_mesh((1, A), ("data", "model"), devices=jax.devices()[:A], **kw)
+pp, _ = pad_experts(p, cfg, A)
+res[f"ref_{A}"] = np.asarray(moe_ep_ref(pp, jnp.asarray(x), cfg))
+for cf in (8.0, 0.5):
+    with jax.sharding.use_mesh(mesh) if hasattr(jax.sharding, "use_mesh") else mesh:
+        out = moe_mlp_ep(pp, jnp.asarray(x), cfg, mesh, capacity_factor=cf)
+    res[f"ep_{A}_{cf}"] = np.asarray(out)
+np.savez(sys.argv[3], **res)
 """
 
 RANK_CODE = """
@@ -91,7 +90,9 @@ dist.destroy_process_group()
 
 
 def _env():
-    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    # one intra-op thread a process: the 12 processes run together
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+                OMP_NUM_THREADS="1")
 
 
 def _jax_cfg():
@@ -101,18 +102,21 @@ def _jax_cfg():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX weights and x, then the JAX subprocess and every rank of every
-    group size, all started together. Returns (the JAX side's arrays with
-    the inputs, per size the ranks' outputs concatenated in rank order)."""
+    """The JAX weights and x, then a JAX subprocess for each group size and
+    every rank of every group size, all started together (the JAX side's
+    eager ``shard_map`` calls take most of the time). Returns (the JAX side's
+    arrays with the inputs, per size the ranks' outputs concatenated in rank
+    order)."""
     tmp = tmp_path_factory.mktemp("moe_ep")
     p = jax_moe.init_moe(jax.random.PRNGKey(0), _jax_cfg())
     inputs = {"x": np.random.default_rng(1).standard_normal((2, 12, 256)).astype(np.float32),
               **{"p_" + k: np.asarray(v) for k, v in p.items()}}
     src = tmp / "in.npz"
     np.savez(src, **inputs)
-    procs = {"jax": subprocess.Popen(
-        [sys.executable, "-c", JAX_CODE, str(src), str(tmp / "jax.npz")], env=_env(),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    procs = {("jax", A): subprocess.Popen(
+        [sys.executable, "-c", JAX_CODE, str(A), str(src), str(tmp / f"jax{A}.npz")],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for A in SIZES}
     procs.update({(A, r): subprocess.Popen(
         [sys.executable, "-c", RANK_CODE, str(r), str(A), str(tmp / f"store{A}"), str(src),
          str(tmp / f"out{A}_{r}.npz")], env=_env(), stdout=subprocess.PIPE,
@@ -128,7 +132,10 @@ def runs(tmp_path_factory):
         ranks = [dict(np.load(tmp / f"out{A}_{r}.npz")) for r in range(A)]
         port[A] = {k: (np.concatenate([r[k] for r in ranks]) if ranks[0][k].ndim
                        else [int(r[k]) for r in ranks]) for k in ranks[0]}
-    return {**inputs, **np.load(tmp / "jax.npz")}, port
+    jax_side = dict(inputs)
+    for A in SIZES:
+        jax_side.update(np.load(tmp / f"jax{A}.npz"))
+    return jax_side, port
 
 
 @pytest.fixture(scope="module")

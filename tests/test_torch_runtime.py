@@ -124,7 +124,7 @@ def test_entry_points_require_a_card_unless_asked_for_cpu(built, monkeypatch):
 def _serve(*args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
-                          env=env, capture_output=True, text=True, timeout=300)
+                          env=env, capture_output=True, text=True, timeout=60)
 
 
 def test_serve_cli_runs_on_cpu_and_refuses_unported_knobs():

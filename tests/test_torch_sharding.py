@@ -21,7 +21,7 @@ import torch
 from torch.distributed.tensor import Replicate, Shard
 
 from repro.configs import ASSIGNED, get_config as jax_get_config
-from repro.launch import dryrun as jax_dryrun, specs as jax_specs
+from repro.launch import specs as jax_specs
 from repro.models.config import INPUT_SHAPES as JAX_SHAPES
 from repro.models.model import build_model as jax_build_model
 from repro.sharding import rules as jax_rules
@@ -30,6 +30,23 @@ from repro_torch.launch import mesh as mesh_lib, specs
 from repro_torch.models.config import INPUT_SHAPES
 from repro_torch.models.model import build_model
 from repro_torch.sharding import rules
+
+
+def _import_jax_dryrun():
+    """``repro.launch.dryrun``, for ``skip_reason``, with ``XLA_FLAGS`` put
+    back as it was: the module appends the 512-device flag at import, which
+    would give every JAX client later started in this process 512 host
+    devices."""
+    flags = os.environ.get("XLA_FLAGS")
+    from repro.launch import dryrun
+    if flags is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = flags
+    return dryrun
+
+
+jax_dryrun = _import_jax_dryrun()   # restores XLA_FLAGS: no 512-device flag leaks
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH = {"data": 16, "model": 16}
@@ -246,10 +263,19 @@ def test_ctx_and_mesh_on_two_gloo_ranks(tmp_path):
     a replicated DTensor comes back sharded on dim 0 with each rank's half and
     the same full tensor. A 16 x 16 mesh over 2 ranks raises; params are
     placed by their specs."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, "-c", CTX_CODE, str(r), str(tmp_path / "store")],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(2)]
     for proc in procs:
-        out, err = proc.communicate(timeout=120)
+        out, err = proc.communicate(timeout=60)
         assert proc.returncode == 0 and out.strip().endswith("ok"), err[-3000:]
+
+
+def test_no_forced_host_device_count_in_this_process():
+    """No module of the suite leaves the dry run's 512-device flag in this
+    process's ``XLA_FLAGS``: under ``--dist loadfile`` every worker imports
+    every test module before its first test, so a leak would give each
+    worker's JAX client 512 host devices (and a thread for each)."""
+    assert "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
+    assert jax.device_count() == 1

@@ -351,11 +351,11 @@ def test_checkpoints_pass_both_ways(tmp_path):
 
 def test_launch_train_on_the_cpu(tmp_path):
     ck = tmp_path / "run" / "ck.npz"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--steps", "4",
          "--layers", "2", "--d-model", "64", "--ckpt", str(ck)],
-        env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=70)
     assert out.returncode == 0, out.stderr
     assert "step     0  loss " in out.stdout and f"saved {ck}" in out.stdout
     cfg = get_config("tinyllama-1.1b").reduced(layers=2, d_model=64, vocab=2048)
