@@ -21,6 +21,7 @@ counterpart of XLA donation: no write ever copies a pool, and the pools'
 """
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -96,7 +97,15 @@ class BlockAllocator:
     radix prefix cache) share a page copy-on-write-style; ``free`` is a
     decref — the page returns to the free list only when its LAST owner
     releases it, so no sibling can ever lose a shared page out from under
-    itself."""
+    itself.
+
+    A ``RadixPrefixCache`` over the allocator (``tree``) is told whenever a
+    page's refcount moves between 1 and 2, so that it can keep its page
+    counts and eviction order as running indexes (a tree page at 1 is the
+    tree's alone). Every owner's ``incref`` and ``free`` goes through here —
+    requests' tables and the runtime's page leases alike — so no move is
+    missed; ``alloc`` never hands out a tree page, which the tree's own
+    reference keeps off the free list."""
 
     def __init__(self, num_pages: int, reserved: int = 0):
         """``reserved`` low pages are never handed out — page 0 serves as the
@@ -105,6 +114,7 @@ class BlockAllocator:
         self.reserved = reserved
         self._free = list(range(num_pages - 1, reserved - 1, -1))
         self._refs = [0] * num_pages
+        self.tree: RadixPrefixCache | None = None
 
     @property
     def free_pages(self) -> int:
@@ -134,6 +144,8 @@ class BlockAllocator:
                     f"incref on non-live page {p} (refcount "
                     f"{self._refs[p]}): only resident pages can be shared")
             self._refs[p] += 1
+            if self._refs[p] == 2 and self.tree is not None:
+                self.tree._sharing_changed(p, shared=True)
 
     def free(self, pages: list[int]) -> None:
         """Drop one owner per page; recycle pages whose refcount hits 0.
@@ -149,6 +161,8 @@ class BlockAllocator:
             self._refs[p] -= 1
             if self._refs[p] == 0:
                 self._free.append(p)
+            elif self._refs[p] == 1 and self.tree is not None:
+                self.tree._sharing_changed(p, shared=False)
 
 
 class _PrefixNode:
@@ -178,42 +192,71 @@ class RadixPrefixCache:
     their computing request and are released only by ``evict``/LRU pressure.
     Partial-page tails are never inserted and never shared — the COW rule:
     any position a request might still write lives on a private page.
-    """
+
+    Page accounting is kept as running indexes, not found by walking the
+    tree (the runtime asks for ``reclaimable`` many times a round, over
+    trees of tens of thousands of pages): a page -> node map, the count of
+    tree pages at refcount 1, and two heaps of leaves keyed ``(stamp,
+    page)``, unshared and shared, from which ``evict`` takes its victims.
+    Heap entries are invalidated lazily: one whose node is gone, has
+    children, or carries an old stamp or sharing state is dropped when it
+    surfaces (``stale_pops``)."""
 
     def __init__(self, allocator: BlockAllocator, page_size: int):
         self.allocator = allocator
+        allocator.tree = self
         self.page_size = page_size
-        self.root = _PrefixNode((), None, None, 0)
         self._clock = 0
         # cumulative counters (deterministic; surfaced via runtime summary)
         self.evictions = 0         # tree pages dropped under pool pressure
         self.inserted_pages = 0    # pages adopted into the tree, cumulative
+        self.stale_pops = 0        # outdated heap entries evict dropped
+        self._reset()
+
+    def _reset(self) -> None:
+        self.root = _PrefixNode((), None, None, 0)
+        self._nodes: dict[int, _PrefixNode] = {}   # page -> its node
+        self._sole = 0                             # tree pages at refcount 1
+        self._heaps: tuple[list, list] = ([], [])  # leaves: unshared, shared
 
     def _tick(self) -> int:
         self._clock += 1
         return self._clock
 
+    def _push(self, node: _PrefixNode) -> None:
+        """Enter a leaf in ``evict``'s index under its current stamp and
+        sharing. A heap more than twice the tree's size is rebuilt from the
+        leaves, so outdated entries cost amortised O(1) and bounded memory."""
+        heap = self._heaps[self.allocator.refcount(node.page) > 1]
+        heapq.heappush(heap, (node.stamp, node.page))
+        if len(heap) > 2 * len(self._nodes) + 64:
+            fresh: tuple[list, list] = ([], [])
+            for n in self._nodes.values():
+                if not n.children:
+                    fresh[self.allocator.refcount(n.page) > 1].append((n.stamp, n.page))
+            for h in fresh:
+                heapq.heapify(h)
+            self._heaps = fresh
+
+    def _sharing_changed(self, page: int, shared: bool) -> None:
+        """Allocator hook: ``page``'s refcount moved 1 -> 2 (``shared``) or
+        2 -> 1. Pages outside the tree are no concern of it."""
+        node = self._nodes.get(page)
+        if node is None:
+            return
+        self._sole += -1 if shared else 1
+        if not node.children:
+            self._push(node)
+
     @property
     def resident_pages(self) -> int:
         """Pages currently referenced by the tree."""
-        n, stack = 0, [self.root]
-        while stack:
-            node = stack.pop()
-            n += len(node.children)
-            stack.extend(node.children.values())
-        return n
+        return len(self._nodes)
 
     def reclaimable(self) -> int:
         """Tree pages only the tree still references (refcount == 1) — the
         pages ``evict`` could return to the free list right now."""
-        n, stack = 0, [self.root]
-        while stack:
-            node = stack.pop()
-            for ch in node.children.values():
-                if self.allocator.refcount(ch.page) == 1:
-                    n += 1
-                stack.append(ch)
-        return n
+        return self._sole
 
     def match(self, tokens, limit: int | None = None,
               touch: bool = True) -> tuple[list[int], int]:
@@ -241,6 +284,8 @@ class RadixPrefixCache:
             pages.append(child.page)
             node = child
             matched += self.page_size
+        if touch and pages and not node.children:
+            self._push(node)
         return pages, matched
 
     def insert(self, tokens, table: list[int]) -> int:
@@ -255,16 +300,34 @@ class RadixPrefixCache:
             key = tuple(toks[i * self.page_size: (i + 1) * self.page_size])
             child = node.children.get(key)
             if child is None:
+                # the request's own reference keeps the page shared (off
+                # the reclaimable count) until the request lets it go
                 page = table[i]
                 self.allocator.incref([page])
                 child = _PrefixNode(key, page, node, self._tick())
                 node.children[key] = child
+                self._nodes[page] = child
                 adopted += 1
                 self.inserted_pages += 1
             else:
                 child.stamp = self._tick()
             node = child
+        if node is not self.root and not node.children:
+            self._push(node)
         return adopted
+
+    def _pop_leaf(self, shared: bool) -> _PrefixNode | None:
+        """The least ``(stamp, page)`` leaf of one sharing state, taken off
+        its heap (None if it has none)."""
+        heap = self._heaps[shared]
+        while heap:
+            stamp, page = heapq.heappop(heap)
+            node = self._nodes.get(page)
+            if (node is not None and node.stamp == stamp and not node.children
+                    and (self.allocator.refcount(page) > 1) == shared):
+                return node
+            self.stale_pops += 1
+        return None
 
     def evict(self, need_pages: int) -> int:
         """Drop LRU leaves until ``need_pages`` pages have actually returned
@@ -273,35 +336,32 @@ class RadixPrefixCache:
         a shared leaf is dropped only when no unshared one exists — that
         frees nothing immediately (the sibling request keeps its reference)
         but unblocks the leaf's ancestors for the next pass. Never touches
-        a page's other owners: eviction here is a decref, nothing more."""
+        a page's other owners: eviction here is a decref, nothing more.
+        Victims are the least ``(stamp, page)`` of their kind, in order."""
         freed = 0
         while freed < need_pages:
-            leaves: list[_PrefixNode] = []
-            stack = list(self.root.children.values())
-            while stack:
-                node = stack.pop()
-                if node.children:
-                    stack.extend(node.children.values())
-                else:
-                    leaves.append(node)
-            if not leaves:
+            victim = self._pop_leaf(shared=False) or self._pop_leaf(shared=True)
+            if victim is None:
                 break
-            unshared = [l for l in leaves
-                        if self.allocator.refcount(l.page) == 1]
-            victim = min(unshared or leaves, key=lambda l: (l.stamp, l.page))
             was_unshared = self.allocator.refcount(victim.page) == 1
-            del victim.parent.children[victim.key]
+            parent = victim.parent
+            del parent.children[victim.key]
+            # out of the page map first: leaving the tree is no sharing move
+            del self._nodes[victim.page]
             self.allocator.free([victim.page])
             self.evictions += 1
             if was_unshared:
                 freed += 1
+                self._sole -= 1
+            if parent is not self.root and not parent.children:
+                self._push(parent)
         return freed
 
     def clear(self) -> None:
         """Drop the whole tree WITHOUT touching the allocator — the crash
         path, where the engine's pool and bookkeeping are gone wholesale
         (recovery recomputes from the frontend prompt log)."""
-        self.root = _PrefixNode((), None, None, 0)
+        self._reset()
 
     def release_all(self) -> int:
         """Drop the whole tree and RELEASE the tree's reference on every
@@ -309,14 +369,15 @@ class RadixPrefixCache:
         authoritative and must end with zero live pages. Returns the number
         of references released. (Contrast ``clear``, which abandons the
         refcounts because the crashed pool is being discarded wholesale.)"""
+        root = self.root
+        self.clear()
         released = 0
-        stack = list(self.root.children.values())
+        stack = list(root.children.values())
         while stack:
             node = stack.pop()
             stack.extend(node.children.values())
             self.allocator.free([node.page])
             released += 1
-        self.root = _PrefixNode((), None, None, 0)
         return released
 
 
